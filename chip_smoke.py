@@ -1,0 +1,329 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; nothing is caught):
+
+1. card: name and power limit from nvidia-smi, CUDA version; CUDA required;
+2. build: the four kernels from pyrecode_tpu_torch/csrc with nvcc (sm_90a);
+3. kernels vs twins: each kernel against its plain PyTorch twin on the card,
+   exactly, at the slice's shapes (4 x 4096^2 frames, ~1% foreground) plus
+   edge cases; one frame against the host oracle; CUDA-event times;
+4. the slice: ReCoDeServer('batch') with 2 thread-mode nodes on 16 frames of
+   4096^2 uint16 (L1, mode 1, scheme 0, 12-bit) -> merge_parts ->
+   ReCoDeReader.read_frames_dense, bit-exact against the data and against
+   the host sparse decode, with every kernel launched on the way.
+
+The last lines are the card, the per-kernel JSON object and the result:
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import pyrecode_tpu_torch as port
+from pyrecode_tpu import native, oracle
+from pyrecode_tpu.constants import rc_cfg as rc
+from pyrecode_tpu.writer import _bucket_for
+from pyrecode_tpu_torch.ops import _build, _launch, hopper_bitpack, hopper_decode, hopper_encode
+
+REPO = Path(__file__).resolve().parent
+SEED = 20261016
+EPSILON = 2
+OCCUPANCY = 0.01
+
+KERNELS = {
+    "encode_l1": ("pyrecode_tpu_torch/csrc/encode_l1.cu", "pyrecode_tpu/ops/pallas_encode.py:760"),
+    "bitpack12": ("pyrecode_tpu_torch/csrc/bitpack12.cu", "pyrecode_tpu/ops/pallas_bitpack.py:129"),
+    "bitunpack12": ("pyrecode_tpu_torch/csrc/bitpack12.cu",
+                    "pyrecode_tpu/ops/pallas_bitpack.py:178"),
+    "decode_l1": ("pyrecode_tpu_torch/csrc/decode_l1.cu", "pyrecode_tpu/ops/pallas_decode.py:269"),
+}
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def make_frames(rng, n: int, height: int, width: int, occupancy: float = OCCUPANCY):
+    """Dark frame in 0..31, 12-bit frames whose background stays at or below
+    dark + EPSILON and whose ~occupancy foreground lies above it with
+    peaked residuals.  Returns (frames (n, h, w) u16, dark (h, w) u16)."""
+    dark = rng.integers(0, 32, (height, width), dtype=np.uint16)
+    thr = dark + EPSILON
+    frames = np.empty((n, height, width), dtype=np.uint16)
+    for i in range(n):
+        frame = dark + rng.integers(0, EPSILON + 1, (height, width), dtype=np.uint16)
+        fg = rng.random((height, width), dtype=np.float32) < occupancy
+        vals = thr[fg].astype(np.int64) + 1 + rng.exponential(6.0, int(fg.sum())).astype(np.int64)
+        frame[fg] = np.minimum(vals, 4095)
+        frames[i] = frame
+    return frames, dark
+
+
+def expect(condition, message) -> None:
+    if not condition:
+        raise AssertionError(message)
+
+
+def as_i64(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.uint16:
+        return _launch.u16_to_i32(t).to(torch.int64)
+    return t.to(torch.int64)
+
+
+def max_abs_err(got, want) -> int:
+    """Largest |got - want| over paired outputs; raises on a shape mismatch."""
+    worst = 0
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        if tuple(g.shape) != tuple(w.shape):
+            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.numel():
+            worst = max(worst, int((as_i64(g) - as_i64(w)).abs().max()))
+    return worst
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, plain_reps=3):
+    """Phase 3: every kernel against its twin (exactly) on edge cases and at
+    the slice's shapes; returns {name: {max_abs_err, ms, plain_ms}}."""
+    frames_np, dark = make_frames(rng, n_frames, height, width)
+    thr_np = dark + EPSILON
+    frames = torch.from_numpy(frames_np).to(device)
+    thr = torch.from_numpy(thr_np).to(device)
+    counts = hopper_encode.encode_l1_plain(frames, thr, 0, with_values=False)[2]
+    out_size = _bucket_for(int(counts.max()), height * width)
+    print(f"slice shapes: frames {tuple(frames.shape)}, foreground counts {counts.tolist()}, "
+          f"value buffer {out_size}")
+    err = dict.fromkeys(KERNELS, 0)
+
+    def check(name, got, want, what):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        e = max_abs_err(got, want)
+        print(f"  {name:12s} {what:40s} max_abs_err {e}")
+        if e:
+            raise AssertionError(f"{name} disagrees with its twin on {what}")
+        err[name] = max(err[name], e)
+
+    # edge frames: ~20% foreground, all zero, odd count
+    edge_np, _ = make_frames(rng, 3, height, width, occupancy=0.2)
+    edge_np[1] = 0
+    odd = rng.random((height, width)) < 0.001
+    if odd.sum() % 2 == 0:
+        odd[0, 0] = not odd[0, 0]
+    edge_np[2] = np.where(odd, thr_np + 7, thr_np).astype(np.uint16)
+    edge = torch.from_numpy(edge_np).to(device)
+    edge_counts = hopper_encode.encode_l1_plain(edge, thr, 0, with_values=False)[2]
+    expect(edge_counts[1] == 0 and int(edge_counts[2]) % 2 == 1, edge_counts)
+    ragged_np, ragged_dark = make_frames(rng, 3, 37, 29, occupancy=0.3)
+    ragged = torch.from_numpy(ragged_np).to(device)
+    ragged_thr = torch.from_numpy(ragged_dark + EPSILON).to(device)
+
+    enc_cases = [
+        ("slice", frames, thr, out_size, True),
+        ("slice L3", frames, thr, 0, False),
+        ("20%/zero/odd frames", edge, thr, _bucket_for(int(edge_counts.max()), height * width),
+         True),
+        ("out_size < count", frames, thr, int(counts.min()) // 2, True),
+        ("37x29 frames", ragged, ragged_thr, 1024, True),
+    ]
+    for what, f, t, size, with_values in enc_cases:
+        got = hopper_encode.encode_l1(f, t, size, with_values)
+        want = hopper_encode.encode_l1_plain(f, t, size, with_values)
+        check("encode_l1", got, want, what)
+        if what == "out_size < count":
+            expect(bool(got[3].all()), "overflow must be set when out_size < count")
+        else:
+            expect(not bool(got[3].any()), "unexpected overflow")
+
+    bitmap, comp, counts_dev, _ = hopper_encode.encode_l1(frames, thr, out_size)
+    packed = hopper_bitpack.bitpack12(comp)
+    check("bitpack12", [packed], [hopper_bitpack.bitpack12_plain(comp)], "slice values")
+    wide = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 1000002)).astype(np.int32)).to(device)
+    check("bitpack12", [hopper_bitpack.bitpack12(wide)], [hopper_bitpack.bitpack12_plain(wide)],
+          "random int32 (n % 262144 != 0)")
+
+    # one frame against the host oracle
+    enc = oracle.reduce_frame(frames_np[0], thr_np, 1, 12)
+    plen = (int(counts_dev[0]) * 12 + 7) // 8
+    expect(bitmap[0].cpu().numpy().tobytes() == enc["packed_binary_map"], "bitmap vs oracle")
+    expect(packed[0, :plen].cpu().numpy().tobytes() == enc["packed_pixvals"], "values vs oracle")
+    print("  frame 0 bitmap and packed values equal oracle.reduce_frame")
+
+    values = hopper_bitpack.bitunpack12(packed)
+    check("bitunpack12", [values], [hopper_bitpack.bitunpack12_plain(packed)], "slice stream")
+    noise = torch.from_numpy(rng.integers(0, 256, (3, 300003), dtype=np.uint8)).to(device)
+    check("bitunpack12", [hopper_bitpack.bitunpack12(noise)],
+          [hopper_bitpack.bitunpack12_plain(noise)], "random bytes")
+
+    dec_cases = [
+        ("slice", bitmap, values, height, width),
+        ("values < count", bitmap, values[:, : int(counts.min()) // 2].contiguous(), height,
+         width),
+    ]
+    edge_bm, edge_comp = hopper_encode.encode_l1(edge, thr, enc_cases[2][3])[:2]
+    dec_cases.append(("20%/zero/odd frames", edge_bm, edge_comp, height, width))
+    rbm, rcomp = hopper_encode.encode_l1(ragged, ragged_thr, 1024)[:2]
+    dec_cases.append(("37x29 frames", rbm, rcomp, 37, 29))
+    for what, bm, vals, h, w in dec_cases:
+        got = hopper_decode.decode_l1(bm, vals, h, w)
+        check("decode_l1", got, hopper_decode.decode_l1_plain(bm, vals, h, w), what)
+        if what == "values < count":
+            expect(bool(got[1].all()), "overflow must be set when values < count")
+        else:
+            expect(not bool(got[1].any()), f"unexpected overflow on {what}")
+    dense = hopper_decode.decode_l1(bitmap, values, height, width)[0]
+    expected = np.where(frames_np > thr_np, frames_np - thr_np, 0)
+    expect(np.array_equal(dense.cpu().numpy(), expected), "decode of encode != residuals")
+
+    if device.type != "cuda":
+        return {name: {"max_abs_err": e, "ms": None, "plain_ms": None} for name, e in err.items()}
+    timed = {
+        "encode_l1": (lambda: hopper_encode.encode_l1(frames, thr, out_size),
+                      lambda: hopper_encode.encode_l1_plain(frames, thr, out_size)),
+        "bitpack12": (lambda: hopper_bitpack.bitpack12(comp),
+                      lambda: hopper_bitpack.bitpack12_plain(comp)),
+        "bitunpack12": (lambda: hopper_bitpack.bitunpack12(packed),
+                        lambda: hopper_bitpack.bitunpack12_plain(packed)),
+        "decode_l1": (lambda: hopper_decode.decode_l1(bitmap, values, height, width),
+                      lambda: hopper_decode.decode_l1_plain(bitmap, values, height, width)),
+    }
+    out = {}
+    for name, (kernel, plain) in timed.items():
+        out[name] = {"max_abs_err": err[name], "ms": cuda_ms(kernel, reps),
+                     "plain_ms": cuda_ms(plain, plain_reps)}
+        print(f"  {name:12s} kernel {out[name]['ms']:.4f} ms, plain twin "
+              f"{out[name]['plain_ms']:.4f} ms (CUDA events, {tuple(frames.shape)} batch)")
+    return out
+
+
+def run_slice(device, rng, work_dir: Path, n_frames=16, height=4096, width=4096, num_threads=2):
+    """Phase 4: server -> part files -> merge -> reader; returns (launch
+    counts, write s, read s, raw bytes)."""
+    data, dark = make_frames(rng, n_frames, height, width)
+    thr = dark + EPSILON
+    expected = np.where(data > thr, data - thr, 0).astype(np.uint16)
+    init_params = port.InitParams("batch", str(work_dir), image_filename="smoke",
+                                  log_filename=str(work_dir / "recode.log"),
+                                  run_name="chip_smoke", verbosity=0)
+    input_params = port.InputParams(dict(
+        reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=EPSILON,
+        target_bit_depth=12, source_bit_depth=12, num_cols=width, num_rows=height,
+        num_frames=n_frames, frame_offset=0, num_calibration_frames=1,
+        calibration_frame_offset=0, keep_part_files=1, num_threads=num_threads,
+        l2_statistics=0, l4_centroiding=0, compression_scheme=0, compression_level=1,
+        source_file_type=0, source_header_length=0, keep_calibration_data=1,
+        calibration_file_type=0, source_data_type=0, target_data_type=0))
+    if not input_params.validate():
+        raise ValueError("invalid input params")
+
+    server = port.ReCoDeServer("batch", device=device)
+    port.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    metrics = server.run(init_params, input_params, dark_data=dark, data=data)
+    merged = port.merge_parts(str(work_dir), "smoke.rc1", num_threads)
+    write_s = time.perf_counter() - t0
+    statuses = [node.status for node in server._nodes]
+    frames_done = sum(m.get("run_frames", 0) for m in metrics.values())
+    if statuses != [rc.STATUS_CODE_IS_CLOSED] * num_threads or frames_done != n_frames:
+        print((work_dir / "recode.log").read_text())
+        raise RuntimeError(f"server run failed: statuses {statuses}, {frames_done} frames")
+
+    stages = {}
+    for m in metrics.values():
+        for key, value in m.items():
+            if key.endswith("_time") and key != "run_data_read_time":
+                stages[key] = stages.get(key, 0.0) + value.total_seconds()
+    print("writer stage seconds, summed over nodes: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    reader = port.ReCoDeReader(merged, device=device)
+    reader.open()
+    t0 = time.perf_counter()
+    dense = reader.read_frames_dense(0, n_frames)
+    read_s = time.perf_counter() - t0
+    launches = port.kernel_launch_counts()
+    if not np.array_equal(dense, expected):
+        raise AssertionError("read_frames_dense differs from the data's residuals")
+    for z in range(n_frames):
+        host = reader.get_frame(z)[z]["data"].toarray()
+        if not np.array_equal(host, expected[z]):
+            raise AssertionError(f"host sparse decode of frame {z} differs")
+    reader.close()
+    print(f"slice: {n_frames} frames {height}x{width}, {num_threads} nodes, merged "
+          f"{Path(merged).stat().st_size} bytes; read_frames_dense and get_frame bit-exact")
+    return launches, write_s, read_s, data.nbytes
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU")
+    device = torch.device("cuda", 0)
+    gpu = card()
+    print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"host library (deflate_sparse) available: {native.available()}, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(SEED)
+    print("kernels vs twins:")
+    kernel_stats = check_kernels(device, rng)
+
+    work_dir = Path(tempfile.mkdtemp(prefix="tmp_chip_smoke_", dir=REPO))
+    try:
+        launches, write_s, read_s, raw = run_slice(device, rng, work_dir)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    print(f"launches in the slice: {launches}")
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the main path: {missing}")
+    print(f"write (server + merge): {write_s:.3f} s, {raw / write_s / 1e9:.3f} GB/s of raw "
+          f"frames [{gpu}]")
+    print(f"read (read_frames_dense): {read_s:.3f} s, {raw / read_s / 1e9:.3f} GB/s of raw "
+          f"frames [{gpu}]")
+
+    print(gpu)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+         "launches": launches[name], **kernel_stats[name]} for name in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

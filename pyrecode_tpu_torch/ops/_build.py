@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call into one shared
+library with a plain C interface, for Hopper (``sm_90a``), and loaded with
+``ctypes``.  The library lives in ``pyrecode_tpu_torch/_build/<hash>/``,
+keyed by a hash of every file in ``csrc/``, so an edited source builds anew
+and an unchanged one is built once per checkout.  The build runs at first
+use: importing this module needs neither ``nvcc`` nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+LIB_NAME = "libpyrecode_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for candidate in (shutil.which("nvcc"),
+                      os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                   "bin", "nvcc")):
+        if candidate and os.path.exists(candidate):
+            return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if this source hash has no library yet.
+
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report
+    (registers, shared memory and spills of each kernel).
+    """
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+        print(f"nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use; one instance per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i64 = ctypes.c_void_p, ctypes.c_int64
+            lib.pr_bitpack12.argtypes = [p, p, i64, p]
+            lib.pr_bitunpack12.argtypes = [p, p, i64, p]
+            lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
+                                         ctypes.c_int, p]
+            lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
+            for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_encode_l1,
+                       lib.pr_decode_l1):
+                fn.restype = ctypes.c_int
+            lib.pr_num_tiles.argtypes = [i64]
+            lib.pr_num_tiles.restype = i64
+            lib.pr_error_string.argtypes = [ctypes.c_int]
+            lib.pr_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib

@@ -1,0 +1,68 @@
+"""Batched L1/L3 encode: threshold -> reduce -> pack.
+
+Port of the L1/L3 branch of pyrecode_tpu/ops/encode.py:encode_frames_auto.
+A whole batch goes through the fused encode kernel and, for L1, the value
+pack; variable-length streams come back in max-bound buffers with true
+counts, and the host writer slices ``packed[i, :packed_len[i]]``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from . import _launch
+from .bitpack import bitpack_values_device, packed_group_shape
+from .hopper_encode import encode_l1
+
+
+@dataclass
+class EncodeResult:
+    """Tensors produced by one encode batch.
+
+    bitmap : (B, ceil(H*W/8)) uint8 — bit-packed binary map
+    packed : (B, max_packed_bytes) uint8 or None — packed L1 residual stream,
+        zero-padded beyond packed_len
+    counts : (B,) int32 — foreground pixels
+    packed_len : (B,) int32 or None — valid bytes of ``packed`` per frame
+    overflow : (B,) bool — the count exceeded the buffer bound
+    """
+
+    bitmap: torch.Tensor
+    packed: Optional[torch.Tensor]
+    counts: torch.Tensor
+    packed_len: Optional[torch.Tensor]
+    overflow: torch.Tensor
+
+
+def encode_frames_auto(frames: torch.Tensor, threshold: torch.Tensor, reduction_level: int,
+                       bit_depth: int, max_values: int) -> EncodeResult:
+    """Encode (B, H, W) uint16 frames against an (H, W) uint16 threshold.
+
+    ``max_values`` bounds the foreground count per frame (rounded up to the
+    pack group); a frame above it is flagged in ``overflow``.
+    """
+    if reduction_level in (2, 4):
+        raise NotImplementedError(
+            "L2/L4 encode is not ported yet (ROADMAP Queue 1 item 8)")
+    if reduction_level not in (1, 3):
+        raise ValueError(f"Unknown reduction level: {reduction_level}")
+    with_values = reduction_level == 1
+    g_vals, _ = packed_group_shape(bit_depth)
+    out_size = -(-max_values // g_vals) * g_vals if with_values else 0
+    bitmap, comp, counts, overflow = encode_l1(frames, threshold, out_size, with_values)
+    if not with_values:
+        return EncodeResult(bitmap, None, counts, None, overflow)
+    packed = bitpack_values_device(comp, bit_depth)
+    packed_len = (counts * bit_depth + 7) // 8
+    return EncodeResult(bitmap, packed, counts, packed_len, overflow)
+
+
+def count_foreground(frames: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """Per-frame foreground pixel counts (B,) int32, the writer's cheap
+    first pass that sizes the encode's value buffer."""
+    f = _launch.u16_to_i32(frames).reshape(frames.shape[0], -1)
+    t = _launch.u16_to_i32(threshold).reshape(1, -1)
+    return (f > t).sum(dim=1, dtype=torch.int32)

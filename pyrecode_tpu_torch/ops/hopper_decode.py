@@ -1,0 +1,73 @@
+"""L1 decode kernel (``csrc/decode_l1.cu``) and its twin.
+
+Replaces pyrecode_tpu/ops/pallas_decode.py:decode_l1_pallas after the
+unpack: for a bitmap (B, ceil(H*W/8)) uint8 and unpacked values (B, V)
+int32 it returns
+
+* dense (B, H, W) uint16 with ``dense[p] = values[rank(p)]`` (modulo 2**16)
+  where bit ``p`` is set and ``rank(p) < V``, else 0; ``rank`` is the number
+  of set bits before ``p`` in the frame;
+* overflow (B,) bool: the frame's set bits outnumber ``V``.
+
+The TPU kernel's capacity-bucket ladder has no counterpart: the values'
+width is the only capacity.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _launch
+from .bitpack import unpack_bits
+
+LAUNCHES = _launch.LaunchCounter()
+
+
+def _check(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: int) -> None:
+    _launch.require(bitmap, "bitmap", torch.uint8, 2)
+    _launch.require(values, "values", torch.int32, 2)
+    n = height * width
+    if bitmap.shape[1] != (n + 7) // 8:
+        raise ValueError(f"bitmap has {bitmap.shape[1]} bytes per frame, "
+                         f"a {height}x{width} frame needs {(n + 7) // 8}")
+    if values.shape[0] != bitmap.shape[0]:
+        raise ValueError("bitmap and values hold different numbers of frames")
+    if n >= 1 << 31:
+        raise ValueError("frames of 2**31 pixels or more are not supported")
+    if not 0 < bitmap.shape[0] < 1 << 16:
+        raise ValueError(f"batch must be in 1..65535, got {bitmap.shape[0]}")
+
+
+def decode_l1_plain(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: int):
+    """Plain PyTorch version of :func:`decode_l1`, on any device."""
+    _check(bitmap, values, height, width)
+    B, V = values.shape
+    n = height * width
+    mask = unpack_bits(bitmap)[:, :n].to(torch.int32)
+    rank = torch.cumsum(mask, dim=1, dtype=torch.int32) - 1
+    counts = mask.sum(dim=1)
+    if V == 0:
+        dense = torch.zeros((B, n), dtype=torch.int32, device=bitmap.device)
+    else:
+        gathered = torch.gather(values, 1, rank.clamp(0, V - 1).to(torch.int64))
+        dense = torch.where((mask > 0) & (rank < V), gathered, 0)
+    return _launch.i32_to_u16(dense).reshape(B, height, width), counts > V
+
+
+def decode_l1(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: int):
+    """Returns (dense (B, H, W) uint16, overflow (B,) bool)."""
+    _check(bitmap, values, height, width)
+    if _launch.on_host(bitmap, values):
+        return decode_l1_plain(bitmap, values, height, width)
+    B, V = values.shape
+    n = height * width
+    dev = bitmap.device
+    dense = torch.empty((B, height, width), dtype=torch.uint16, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
+    _launch.launch(LAUNCHES, "pr_decode_l1", dev,
+                   _launch.ptr(bitmap), _launch.ptr(values), _launch.ptr(dense),
+                   _launch.ptr(overflow), _launch.ptr(counts), _launch.ptr(tiles),
+                   B, n, V)
+    return dense, overflow

@@ -1,0 +1,83 @@
+"""Fused L1/L3 encode kernel (``csrc/encode_l1.cu``) and its twin.
+
+Replaces the plain path of pyrecode_tpu/ops/pallas_encode.py:encode_l1_pallas
+with one capacity, ``out_size``: the TPU kernel's per-sub-row capacity
+buckets are VMEM sizes and have no counterpart here.  For frames (B, H, W)
+uint16 and a threshold (H, W) uint16:
+
+* mask = frame > threshold (unsigned), residual = frame - threshold;
+* bitmap (B, ceil(H*W/8)) uint8, raster order, LSB-first in each byte;
+* comp (B, out_size) int32: the foreground residuals in raster order, zeros
+  from ``count`` on (a packed stream of an odd count then ends in the same
+  byte as the host encoder's); None without values;
+* counts (B,) int32; overflow (B,) bool = count > out_size (always False
+  without values).
+
+``with_values=False`` is L3.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _launch
+from .bitpack import pack_bits
+
+LAUNCHES = _launch.LaunchCounter()
+
+
+def _check(frames: torch.Tensor, threshold: torch.Tensor) -> None:
+    _launch.require(frames, "frames", torch.uint16, 3)
+    _launch.require(threshold, "threshold", torch.uint16, 2)
+    if tuple(threshold.shape) != tuple(frames.shape[1:]):
+        raise ValueError(f"threshold shape {tuple(threshold.shape)} does not match "
+                         f"frames {tuple(frames.shape)}")
+    B, H, W = frames.shape
+    if H * W >= 1 << 31:
+        raise ValueError("frames of 2**31 pixels or more are not supported")
+    if not 0 < B < 1 << 16:
+        raise ValueError(f"batch must be in 1..65535, got {B}")
+
+
+def encode_l1_plain(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
+                    with_values: bool = True):
+    """Plain PyTorch version of :func:`encode_l1`, on any device."""
+    _check(frames, threshold)
+    B, H, W = frames.shape
+    n = H * W
+    f = _launch.u16_to_i32(frames).reshape(B, n)
+    t = _launch.u16_to_i32(threshold).reshape(1, n)
+    mask = f > t
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    bitmap = pack_bits(torch.nn.functional.pad(mask.to(torch.uint8), (0, -n % 8)))
+    if not with_values:
+        return bitmap, None, counts, torch.zeros(B, dtype=torch.bool, device=frames.device)
+    comp = torch.zeros((B, out_size), dtype=torch.int32, device=frames.device)
+    residual = f - t
+    for b in range(B):
+        vals = residual[b][mask[b]][:out_size]
+        comp[b, :vals.numel()] = vals
+    return bitmap, comp, counts, counts > out_size
+
+
+def encode_l1(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
+              with_values: bool = True):
+    """Returns (bitmap, comp or None, counts, overflow) as described above."""
+    _check(frames, threshold)
+    if out_size < 0:
+        raise ValueError(f"out_size must be >= 0, got {out_size}")
+    if _launch.on_host(frames, threshold):
+        return encode_l1_plain(frames, threshold, out_size, with_values)
+    B, H, W = frames.shape
+    n = H * W
+    dev = frames.device
+    bitmap = torch.empty((B, (n + 7) // 8), dtype=torch.uint8, device=dev)
+    comp = torch.empty((B, out_size if with_values else 0), dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
+    _launch.launch(LAUNCHES, "pr_encode_l1", dev,
+                   _launch.ptr(frames), _launch.ptr(threshold), _launch.ptr(bitmap),
+                   _launch.ptr(comp), _launch.ptr(counts), _launch.ptr(overflow),
+                   _launch.ptr(tiles), B, n, out_size, int(with_values))
+    return bitmap, comp if with_values else None, counts, overflow

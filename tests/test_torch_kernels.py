@@ -1,0 +1,111 @@
+"""The four CUDA kernels of pyrecode_tpu_torch against their plain twins on
+the card, exactly.
+
+Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one.
+The file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+"""
+
+import filecmp
+
+import numpy as np
+import pytest
+import torch
+
+import pyrecode_tpu_torch as port
+from pyrecode_tpu import InputParams
+from pyrecode_tpu_torch.ops import hopper_bitpack, hopper_decode, hopper_encode
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def _frames(density, shape, batch=3, seed=0):
+    rng = np.random.default_rng(seed)
+    frames = np.where(rng.random((batch, *shape)) < density,
+                      rng.integers(1, 4096, (batch, *shape)), 0).astype(np.uint16)
+    thr = rng.integers(0, 32, size=shape).astype(np.uint16)
+    return frames, thr
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            assert g is None and w is None
+        elif g.dtype == torch.uint16:
+            assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+        else:
+            assert torch.equal(g, w)
+
+
+def test_bitpack12_matches_twin(cuda):
+    rng = np.random.default_rng(11)
+    v = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 100002)).astype(np.int32)).to(cuda)
+    _equal([hopper_bitpack.bitpack12(v)], [hopper_bitpack.bitpack12_plain(v)])
+
+
+def test_bitunpack12_matches_twin(cuda):
+    rng = np.random.default_rng(12)
+    b = torch.from_numpy(rng.integers(0, 256, (3, 30003), dtype=np.uint8)).to(cuda)
+    _equal([hopper_bitpack.bitunpack12(b)], [hopper_bitpack.bitunpack12_plain(b)])
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+@pytest.mark.parametrize("with_values", [True, False])
+def test_encode_l1_matches_twin(cuda, shape, with_values):
+    frames, thr = _frames(0.2, shape, seed=13)
+    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+    for out_size in (shape[0] * shape[1], 100):   # fits; overflows
+        got = hopper_encode.encode_l1(f, t, out_size, with_values)
+        _equal(got, hopper_encode.encode_l1_plain(f, t, out_size, with_values))
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+def test_decode_l1_matches_twin(cuda, shape):
+    frames, thr = _frames(0.3, shape, seed=14)
+    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+    bitmap, comp, _, _ = hopper_encode.encode_l1(f, t, shape[0] * shape[1])
+    for values in (comp, comp[:, :100].contiguous()):   # fits; overflows
+        got = hopper_decode.decode_l1(bitmap, values, *shape)
+        _equal(got, hopper_decode.decode_l1_plain(bitmap, values, *shape))
+
+
+def test_card_slice_matches_host(cuda, tmp_path):
+    """Writer -> merge -> reader on the card gives the host path's bytes."""
+    rng = np.random.default_rng(15)
+    data = np.where(rng.random((6, 128, 128)) < 0.05,
+                    rng.integers(40, 4096, (6, 128, 128)), 0).astype(np.uint16)
+    dark = rng.integers(0, 30, (128, 128)).astype(np.uint16)
+    params = InputParams(dict(
+        reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=3,
+        target_bit_depth=12, source_bit_depth=12, num_cols=128, num_rows=128, num_frames=6,
+        frame_offset=0, num_calibration_frames=1, calibration_frame_offset=0,
+        keep_part_files=0, num_threads=2, l2_statistics=0, l4_centroiding=0,
+        compression_scheme=0, compression_level=1, source_file_type=0,
+        source_header_length=0, keep_calibration_data=1, calibration_file_type=0,
+        source_data_type=0, target_data_type=0))
+    assert params.validate()
+    merged = {}
+    for device in ("cpu", "cuda"):
+        out = tmp_path / device
+        out.mkdir()
+        for node_id in range(2):
+            w = port.ReCoDeWriter("s", dark_data=dark, output_directory=str(out),
+                                  input_params=params, node_id=node_id, device=device)
+            w.start()
+            w.run(data)
+            w.close()
+        merged[device] = port.merge_parts(str(out), "s.rc1", 2)
+    assert filecmp.cmp(merged["cpu"], merged["cuda"], shallow=False)
+    reader = port.ReCoDeReader(merged["cuda"], device="cuda")
+    reader.open()
+    thr = dark.astype(np.int64) + 3
+    assert np.array_equal(reader.read_frames_dense(0, 6), np.where(data > thr, data - thr, 0))
+    reader.close()
