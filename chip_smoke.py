@@ -8,14 +8,20 @@ Run from the repository root with no arguments:
 Phases (each raises on failure; nothing is caught):
 
 1. card: name and power limit from nvidia-smi, CUDA version; CUDA required;
-2. build: the four kernels from pyrecode_tpu_torch/csrc with nvcc (sm_90a);
+2. build: the kernels from pyrecode_tpu_torch/csrc with one nvcc call (sm_90a);
 3. kernels vs twins: each kernel against its plain PyTorch twin on the card,
-   exactly, at the slice's shapes (4 x 4096^2 frames, ~1% foreground) plus
-   edge cases; one frame against the host oracle; CUDA-event times;
+   exactly, at the slice's shapes (4 x 4096^2 frames, ~1% foreground, and the
+   bitmap and packed-value streams of that batch for the deflate tokenizer
+   and assembler) plus edge cases; one frame against the host oracle; every
+   stream deflated on the card against native.deflate_sparse; CUDA-event
+   times;
 4. the slice: ReCoDeServer('batch') with 2 thread-mode nodes on 16 frames of
-   4096^2 uint16 (L1, mode 1, scheme 0, 12-bit) -> merge_parts ->
-   ReCoDeReader.read_frames_dense, bit-exact against the data and against
-   the host sparse decode, with every kernel launched on the way.
+   4096^2 uint16 (L1, mode 1, scheme 0, 12-bit; device entropy, the default
+   on the card) -> merge_parts -> ReCoDeReader.read_frames_dense, bit-exact
+   against the data and against the host sparse decode, with every kernel
+   launched on the way;
+5. entropy paths: one node's part file of the same frames written with
+   device entropy and with host entropy, byte-equal, and both write times.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -36,8 +42,11 @@ import torch
 import pyrecode_tpu_torch as port
 from pyrecode_tpu import native, oracle
 from pyrecode_tpu.constants import rc_cfg as rc
+from pyrecode_tpu.codecs.dyndeflate import quantize_bound
 from pyrecode_tpu.writer import _bucket_for
-from pyrecode_tpu_torch.ops import _build, _launch, hopper_bitpack, hopper_decode, hopper_encode
+from pyrecode_tpu_torch.codecs import dyndeflate
+from pyrecode_tpu_torch.ops import (_build, _launch, hopper_bitpack, hopper_decode, hopper_deflate,
+                                    hopper_encode)
 
 REPO = Path(__file__).resolve().parent
 SEED = 20261016
@@ -47,6 +56,10 @@ OCCUPANCY = 0.01
 KERNELS = {
     "encode_l1": ("pyrecode_tpu_torch/csrc/encode_l1.cu", "pyrecode_tpu/ops/pallas_encode.py:760"),
     "bitpack12": ("pyrecode_tpu_torch/csrc/bitpack12.cu", "pyrecode_tpu/ops/pallas_bitpack.py:129"),
+    "tokenize": ("pyrecode_tpu_torch/csrc/tokenize.cu", "pyrecode_tpu/ops/pallas_deflate.py:468"),
+    "tokenize_compact": ("pyrecode_tpu_torch/csrc/tokenize.cu",
+                         "pyrecode_tpu/ops/pallas_deflate.py:443"),
+    "assemble": ("pyrecode_tpu_torch/csrc/assemble.cu", "pyrecode_tpu/ops/pallas_deflate.py:951"),
     "bitunpack12": ("pyrecode_tpu_torch/csrc/bitpack12.cu",
                     "pyrecode_tpu/ops/pallas_bitpack.py:178"),
     "decode_l1": ("pyrecode_tpu_torch/csrc/decode_l1.cu", "pyrecode_tpu/ops/pallas_decode.py:269"),
@@ -111,6 +124,96 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def deflate_battery(rng):
+    """Byte streams at the deflate tokenizer's edges: runs across its tiles,
+    one across more tiles than a block searches at a time for the run start,
+    runs past its 522-byte run-end lookahead, the take boundaries of the
+    native tokenizer, the empty, stored (random) and literal-dense cases."""
+    t = hopper_deflate.TILE
+    streams = [b"", b"\x00" * t, b"\x00" * (t + 1), b"\x00" * (3 * t + 17),
+               b"\x00" * (300 * t) + b"\x01",
+               b"X" * (t - 6) + b"\x00" * 5000 + b"Y", b"A" + b"\x00" * 520 + b"B",
+               b"\x07" * 261 + b"xy" + b"\x07" * 519,
+               (rng.integers(0, 256, 9000) * (rng.random(9000) < 0.02)).astype(np.uint8).tobytes(),
+               rng.integers(0, 256, 5000, dtype=np.uint8).tobytes(),
+               rng.integers(0, 3, 11000, dtype=np.uint8).tobytes()]
+    streams += [b"Q" * off + b"\x00" * 259 + b"R" * 40 for off in (t - 2, t - 1, t, t + 1)]
+    streams += [b"Z" * (t - 3) + b"\x00" * gap + b"W" for gap in range(523, 528)]
+    return streams
+
+
+def host_tables(hist, device):
+    """The assembler's token LUTs, header phases and partial bytes from a
+    tokenizer histogram, as deflate_batch_device builds them."""
+    t = dyndeflate.host_tables(hist.cpu().numpy())
+    return [torch.from_numpy(a).to(device) for a in (t.luts, t.phases, t.partials)]
+
+
+def check_deflate(device, rng, check, bitmap, packed, plens):
+    """Phase 3, deflate: tokenize, tokenize_compact and assemble against their
+    twins on an edge battery and on the slice's bitmap and packed-value
+    streams, and every stream deflate_batch_device makes, with and without a
+    density hint, against native.deflate_sparse.  Returns, for the bitmap and
+    the value streams, (kernel, twin) closures of each kernel at the inputs
+    the main path gives it."""
+    raws = deflate_battery(rng)
+    edge = np.zeros((len(raws), max(map(len, raws)) + 5003), np.uint8)
+    for i, raw in enumerate(raws):
+        edge[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    full = torch.full((bitmap.shape[0],), bitmap.shape[1], dtype=torch.int32, device=device)
+    cases = [("edge battery", torch.from_numpy(edge).to(device),
+              torch.tensor([len(r) for r in raws], dtype=torch.int32, device=device)),
+             ("slice bitmaps", bitmap, full), ("slice values", packed, plens)]
+    timed = {}
+    for what, streams, lengths in cases:
+        tok, hist, adler = hopper_deflate.tokenize(streams, lengths)
+        check("tokenize", [tok, hist, adler], hopper_deflate.tokenize_plain(streams, lengths), what)
+        n_tok = int(hist[:, :286].sum(dim=1).max())
+        for bound in (n_tok, n_tok // 2):
+            got = hopper_deflate.tokenize_compact(streams, lengths, bound)
+            check("tokenize_compact", got,
+                  hopper_deflate.tokenize_compact_plain(streams, lengths, bound),
+                  f"{what}, bound {bound}")
+            expect(bool(got[4].any()) == (bound < n_tok), f"tokenize_compact overflow at {bound}")
+        comp = hopper_deflate.tokenize_compact(streams, lengths, n_tok)[0]
+        tables = host_tables(hist, device)
+        out_bound = 2 * streams.shape[1] + 256
+        for kind, t in (("u16", tok), ("i32 compacted", comp)):
+            check("assemble", hopper_deflate.assemble(t, *tables, out_bound),
+                  hopper_deflate.assemble_plain(t, *tables, out_bound), f"{what}, {kind} tokens")
+
+        lens = lengths.cpu().numpy()
+        host = streams.cpu().numpy()
+        hint = {}
+        for _ in range(2):  # the first call seeds the density hint the second one reads
+            outs = dyndeflate.deflate_batch_device(streams, lens, hint_state=hint)
+            for i, out in enumerate(outs):
+                expect(out == native.deflate_sparse(host[i, :lens[i]].tobytes()),
+                       f"deflate_batch_device differs from native.deflate_sparse: {what}, stream {i}")
+        print(f"  deflate      {what}: {len(outs)} streams equal native.deflate_sparse, "
+              f"without and with a density hint ({hint['density']:.4f})")
+
+        if what != "edge battery":
+            # the main path assembles compacted tokens of sparse streams and
+            # dense tokens sliced to the longest stream of literal-dense ones
+            cols = min(streams.shape[1], quantize_bound(int(lens.max()), hopper_deflate.TILE))
+            asm_tok = comp if 2 * n_tok <= cols else \
+                tok.view(torch.int16)[:, :cols].contiguous().view(torch.uint16)
+            timed[what] = {
+                "tokenize": (lambda s=streams, n=lengths: hopper_deflate.tokenize(s, n),
+                             lambda s=streams, n=lengths: hopper_deflate.tokenize_plain(s, n)),
+                "tokenize_compact": (
+                    lambda s=streams, n=lengths, b=n_tok: hopper_deflate.tokenize_compact(s, n, b),
+                    lambda s=streams, n=lengths, b=n_tok:
+                        hopper_deflate.tokenize_compact_plain(s, n, b)),
+                "assemble": (
+                    lambda t=asm_tok, a=tables, o=out_bound: hopper_deflate.assemble(t, *a, o),
+                    lambda t=asm_tok, a=tables, o=out_bound:
+                        hopper_deflate.assemble_plain(t, *a, o)),
+            }
+    return timed
+
+
 def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, plain_reps=3):
     """Phase 3: every kernel against its twin (exactly) on edge cases and at
     the slice's shapes; returns {name: {max_abs_err, ms, plain_ms}}."""
@@ -128,7 +231,7 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         e = max_abs_err(got, want)
-        print(f"  {name:12s} {what:40s} max_abs_err {e}")
+        print(f"  {name:16s} {what:44s} max_abs_err {e}")
         if e:
             raise AssertionError(f"{name} disagrees with its twin on {what}")
         err[name] = max(err[name], e)
@@ -204,6 +307,9 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     expected = np.where(frames_np > thr_np, frames_np - thr_np, 0)
     expect(np.array_equal(dense.cpu().numpy(), expected), "decode of encode != residuals")
 
+    plens = (counts_dev * 12 + 7) // 8
+    deflate_timed = check_deflate(device, rng, check, bitmap, packed, plens)
+
     if device.type != "cuda":
         return {name: {"max_abs_err": e, "ms": None, "plain_ms": None} for name, e in err.items()}
     timed = {
@@ -220,21 +326,22 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     for name, (kernel, plain) in timed.items():
         out[name] = {"max_abs_err": err[name], "ms": cuda_ms(kernel, reps),
                      "plain_ms": cuda_ms(plain, plain_reps)}
-        print(f"  {name:12s} kernel {out[name]['ms']:.4f} ms, plain twin "
+        print(f"  {name:16s} kernel {out[name]['ms']:.4f} ms, plain twin "
               f"{out[name]['plain_ms']:.4f} ms (CUDA events, {tuple(frames.shape)} batch)")
+    # the kernels line carries the bitmap streams' times (8 MiB a batch)
+    for what in ("slice values", "slice bitmaps"):
+        for name, (kernel, plain) in deflate_timed[what].items():
+            out[name] = {"max_abs_err": err[name], "ms": cuda_ms(kernel, reps),
+                         "plain_ms": cuda_ms(plain, plain_reps)}
+            print(f"  {name:16s} kernel {out[name]['ms']:.4f} ms, plain twin "
+                  f"{out[name]['plain_ms']:.4f} ms (CUDA events, {what} of the "
+                  f"{tuple(frames.shape)} batch)")
     return out
 
 
-def run_slice(device, rng, work_dir: Path, n_frames=16, height=4096, width=4096, num_threads=2):
-    """Phase 4: server -> part files -> merge -> reader; returns (launch
-    counts, write s, read s, raw bytes)."""
-    data, dark = make_frames(rng, n_frames, height, width)
-    thr = dark + EPSILON
-    expected = np.where(data > thr, data - thr, 0).astype(np.uint16)
-    init_params = port.InitParams("batch", str(work_dir), image_filename="smoke",
-                                  log_filename=str(work_dir / "recode.log"),
-                                  run_name="chip_smoke", verbosity=0)
-    input_params = port.InputParams(dict(
+def slice_params(n_frames: int, height: int, width: int, num_threads: int):
+    """L1, mode 1, scheme 0, 12-bit parameters of the slice."""
+    params = port.InputParams(dict(
         reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=EPSILON,
         target_bit_depth=12, source_bit_depth=12, num_cols=width, num_rows=height,
         num_frames=n_frames, frame_offset=0, num_calibration_frames=1,
@@ -242,8 +349,21 @@ def run_slice(device, rng, work_dir: Path, n_frames=16, height=4096, width=4096,
         l2_statistics=0, l4_centroiding=0, compression_scheme=0, compression_level=1,
         source_file_type=0, source_header_length=0, keep_calibration_data=1,
         calibration_file_type=0, source_data_type=0, target_data_type=0))
-    if not input_params.validate():
+    if not params.validate():
         raise ValueError("invalid input params")
+    return params
+
+
+def run_slice(device, data, dark, work_dir: Path, num_threads=2):
+    """Phase 4: server -> part files -> merge -> reader on frames ``data``
+    (n, h, w) u16; returns (launch counts, write s, read s)."""
+    n_frames, height, width = data.shape
+    thr = dark + EPSILON
+    expected = np.where(data > thr, data - thr, 0).astype(np.uint16)
+    init_params = port.InitParams("batch", str(work_dir), image_filename="smoke",
+                                  log_filename=str(work_dir / "recode.log"),
+                                  run_name="chip_smoke", verbosity=0)
+    input_params = slice_params(n_frames, height, width, num_threads)
 
     server = port.ReCoDeServer("batch", device=device)
     port.reset_kernel_launch_counts()
@@ -280,7 +400,36 @@ def run_slice(device, rng, work_dir: Path, n_frames=16, height=4096, width=4096,
     reader.close()
     print(f"slice: {n_frames} frames {height}x{width}, {num_threads} nodes, merged "
           f"{Path(merged).stat().st_size} bytes; read_frames_dense and get_frame bit-exact")
-    return launches, write_s, read_s, data.nbytes
+    return launches, write_s, read_s
+
+
+def compare_entropy_paths(device, data, dark, work_dir: Path):
+    """Phase 5: one node writes all of ``data`` into a part file with device
+    entropy and with host entropy, in the order device, host, host, device;
+    every part file must equal the first byte for byte.  Returns the write
+    seconds (writer start to close) of each path."""
+    params = slice_params(*data.shape, num_threads=1)
+    first = None
+    seconds = {True: [], False: []}
+    for k, device_entropy in enumerate((True, False, False, True)):
+        out = work_dir / f"entropy_{k}"
+        out.mkdir()
+        t0 = time.perf_counter()
+        writer = port.ReCoDeWriter("smoke", dark_data=dark, output_directory=str(out),
+                                   input_params=params, device=device,
+                                   device_entropy=device_entropy)
+        expect(writer._device_entropy is device_entropy, "device_entropy was not taken")
+        writer.start()
+        writer.run(data)
+        writer.close()
+        seconds[device_entropy].append(time.perf_counter() - t0)
+        part = (out / "smoke.rc1_part000").read_bytes()
+        first = part if first is None else first
+        expect(part == first, f"part file {k} (device_entropy={device_entropy}) differs from "
+                              "the device-entropy one")
+    print(f"entropy paths: {data.shape[0]} frames {data.shape[1]}x{data.shape[2]}, one node; "
+          f"device- and host-entropy part files byte-equal ({len(first)} bytes)")
+    return seconds
 
 
 def main() -> None:
@@ -302,19 +451,26 @@ def main() -> None:
     print("kernels vs twins:")
     kernel_stats = check_kernels(device, rng)
 
+    data, dark = make_frames(rng, 16, 4096, 4096)
     work_dir = Path(tempfile.mkdtemp(prefix="tmp_chip_smoke_", dir=REPO))
     try:
-        launches, write_s, read_s, raw = run_slice(device, rng, work_dir)
+        (work_dir / "slice").mkdir()
+        launches, write_s, read_s = run_slice(device, data, dark, work_dir / "slice")
+        print(f"launches in the slice: {launches}")
+        missing = [name for name, n in launches.items() if n == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the main path: {missing}")
+        entropy_s = compare_entropy_paths(device, data, dark, work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    print(f"launches in the slice: {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
-    print(f"write (server + merge): {write_s:.3f} s, {raw / write_s / 1e9:.3f} GB/s of raw "
-          f"frames [{gpu}]")
+    raw = data.nbytes
+    print(f"write (server + merge, device entropy): {write_s:.3f} s, "
+          f"{raw / write_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
     print(f"read (read_frames_dense): {read_s:.3f} s, {raw / read_s / 1e9:.3f} GB/s of raw "
           f"frames [{gpu}]")
+    for device_entropy, name in ((True, "device"), (False, "host")):
+        runs = ", ".join(f"{t:.3f}" for t in entropy_s[device_entropy])
+        print(f"write (one writer, {name} entropy): {runs} s [{gpu}]")
 
     print(gpu)
     print(json.dumps({"kernels": [

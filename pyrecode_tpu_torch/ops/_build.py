@@ -84,11 +84,17 @@ def load() -> ctypes.CDLL:
             lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
                                          ctypes.c_int, p]
             lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
+            lib.pr_tokenize.argtypes = [p, p, p, p, p, p, p, i64, i64, p]
+            lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
+            lib.pr_assemble.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, i64, i64, i64,
+                                        p]
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_encode_l1,
-                       lib.pr_decode_l1):
+                       lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
+                       lib.pr_assemble):
                 fn.restype = ctypes.c_int
-            lib.pr_num_tiles.argtypes = [i64]
-            lib.pr_num_tiles.restype = i64
+            for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles):
+                fn.argtypes = [i64]
+                fn.restype = i64
             lib.pr_error_string.argtypes = [ctypes.c_int]
             lib.pr_error_string.restype = ctypes.c_char_p
             _lib = lib

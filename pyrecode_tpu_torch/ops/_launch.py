@@ -91,3 +91,8 @@ def i32_to_u16(t: torch.Tensor) -> torch.Tensor:
 def num_tiles(n_pixels: int) -> int:
     """Tiles of the encode/decode kernels' scan for one frame of n_pixels."""
     return int(_build.load().pr_num_tiles(n_pixels))
+
+
+def deflate_tiles(n: int) -> int:
+    """Tiles of the tokenize / assemble kernels for a row of n bytes or tokens."""
+    return int(_build.load().pr_deflate_tiles(n))

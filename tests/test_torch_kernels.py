@@ -1,5 +1,5 @@
-"""The four CUDA kernels of pyrecode_tpu_torch against their plain twins on
-the card, exactly.
+"""The CUDA kernels of pyrecode_tpu_torch against their plain twins on the
+card, exactly, and the device deflate against the native host encoder.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -14,8 +14,9 @@ import pytest
 import torch
 
 import pyrecode_tpu_torch as port
-from pyrecode_tpu import InputParams
-from pyrecode_tpu_torch.ops import hopper_bitpack, hopper_decode, hopper_encode
+from pyrecode_tpu import InputParams, native
+from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tables
+from pyrecode_tpu_torch.ops import hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode
 
 pytestmark = pytest.mark.gpu
 
@@ -77,8 +78,60 @@ def test_decode_l1_matches_twin(cuda, shape):
         _equal(got, hopper_decode.decode_l1_plain(bitmap, values, *shape))
 
 
+def _streams(seed=16):
+    """Byte streams across the tokenizer's 4096-byte tiles: sparse, one long
+    zero run, one across more tiles than a block searches at a time for its
+    run start, random (stored), literal-dense, empty; padded to one width."""
+    rng = np.random.default_rng(seed)
+    t = hopper_deflate.TILE
+    raws = [(rng.integers(0, 256, 3 * t) * (rng.random(3 * t) < 0.03)).astype(np.uint8).tobytes(),
+            b"X" * (t - 6) + b"\x00" * 5000 + b"Y", b"\x00" * (300 * t) + b"\x01",
+            rng.integers(0, 256, 5000, dtype=np.uint8).tobytes(),
+            rng.integers(0, 3, 2 * t + 11, dtype=np.uint8).tobytes(), b""]
+    streams = np.zeros((len(raws), 301 * t), np.uint8)
+    for i, raw in enumerate(raws):
+        streams[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    return raws, streams, np.array([len(r) for r in raws], np.int32)
+
+
+def test_tokenize_matches_twin(cuda):
+    _, streams, lengths = _streams()
+    s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
+    _equal(hopper_deflate.tokenize(s, n), hopper_deflate.tokenize_plain(s, n))
+
+
+def test_tokenize_compact_matches_twin(cuda):
+    _, streams, lengths = _streams()
+    s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
+    for bound in (streams.shape[1], 100):   # fits; overflows
+        _equal(hopper_deflate.tokenize_compact(s, n, bound),
+               hopper_deflate.tokenize_compact_plain(s, n, bound))
+
+
+def test_assemble_matches_twin(cuda):
+    _, streams, lengths = _streams()
+    s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
+    tok, hist, _ = hopper_deflate.tokenize(s, n)
+    tables = host_tables(hist.cpu().numpy())
+    args = [torch.from_numpy(a).to(cuda) for a in (tables.luts, tables.phases, tables.partials)]
+    comp = hopper_deflate.tokenize_compact(s, n, streams.shape[1])[0]
+    for t in (tok, comp):
+        for out_bound in (2 * streams.shape[1] + 256, 300):   # fits; overflows
+            _equal(hopper_deflate.assemble(t, *args, out_bound),
+                   hopper_deflate.assemble_plain(t, *args, out_bound))
+
+
+def test_deflate_batch_matches_native(cuda):
+    raws, streams, lengths = _streams()
+    hint = {}
+    for _ in range(2):      # two-pass tokenize, then the fused kernel on the hint
+        out = deflate_batch_device(torch.from_numpy(streams).to(cuda), lengths, hint_state=hint)
+        assert out == [native.deflate_sparse(r) for r in raws]
+
+
 def test_card_slice_matches_host(cuda, tmp_path):
-    """Writer -> merge -> reader on the card gives the host path's bytes."""
+    """Writer -> merge -> reader on the card, with device entropy (the
+    default there) and with host entropy, gives the host path's bytes."""
     rng = np.random.default_rng(15)
     data = np.where(rng.random((6, 128, 128)) < 0.05,
                     rng.integers(40, 4096, (6, 128, 128)), 0).astype(np.uint16)
@@ -93,18 +146,21 @@ def test_card_slice_matches_host(cuda, tmp_path):
         source_data_type=0, target_data_type=0))
     assert params.validate()
     merged = {}
-    for device in ("cpu", "cuda"):
-        out = tmp_path / device
+    for device, device_entropy in (("cpu", False), ("cuda", None), ("cuda", False)):
+        out = tmp_path / f"{device}_{device_entropy}"
         out.mkdir()
         for node_id in range(2):
             w = port.ReCoDeWriter("s", dark_data=dark, output_directory=str(out),
-                                  input_params=params, node_id=node_id, device=device)
+                                  input_params=params, node_id=node_id, device=device,
+                                  device_entropy=device_entropy)
+            assert w._device_entropy is (device_entropy is None)   # on by default on the card
             w.start()
             w.run(data)
             w.close()
-        merged[device] = port.merge_parts(str(out), "s.rc1", 2)
-    assert filecmp.cmp(merged["cpu"], merged["cuda"], shallow=False)
-    reader = port.ReCoDeReader(merged["cuda"], device="cuda")
+        merged[device, device_entropy] = port.merge_parts(str(out), "s.rc1", 2)
+    assert filecmp.cmp(merged["cpu", False], merged["cuda", None], shallow=False)
+    assert filecmp.cmp(merged["cpu", False], merged["cuda", False], shallow=False)
+    reader = port.ReCoDeReader(merged["cuda", None], device="cuda")
     reader.open()
     thr = dark.astype(np.int64) + 3
     assert np.array_equal(reader.read_frames_dense(0, 6), np.where(data > thr, data - thr, 0))

@@ -187,9 +187,14 @@ def test_unported_options_raise(tmp_path):
     params = _params(shape=(2, 16, 16), num_threads=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.ReCoDeServer("batch", isolation="process", device="cpu")
+    assert port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
+                             input_params=params, device="cpu",
+                             device_entropy=True)._device_entropy is True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
-                          input_params=params, device="cpu", device_entropy=True)
+                          input_params=_params(shape=(2, 16, 16), num_threads=1,
+                                               compression_scheme=12),
+                          device="cpu", device_entropy=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
                           input_params=_params(shape=(2, 16, 16), num_threads=1,
