@@ -11,17 +11,25 @@ Phases (each raises on failure; nothing is caught):
 2. build: the kernels from pyrecode_tpu_torch/csrc with one nvcc call (sm_90a);
 3. kernels vs twins: each kernel against its plain PyTorch twin on the card,
    exactly, at the slice's shapes (4 x 4096^2 frames, ~1% foreground, and the
-   bitmap and packed-value streams of that batch for the deflate tokenizer
-   and assembler) plus edge cases; one frame against the host oracle; every
-   stream deflated on the card against native.deflate_sparse; CUDA-event
-   times;
-4. the slice: ReCoDeServer('batch') with 2 thread-mode nodes on 16 frames of
-   4096^2 uint16 (L1, mode 1, scheme 0, 12-bit; device entropy, the default
-   on the card) -> merge_parts -> ReCoDeReader.read_frames_dense, bit-exact
-   against the data and against the host sparse decode, with every kernel
-   launched on the way;
+   streams of that batch: bitmaps and packed values for the deflate
+   tokenizer and assembler, gap and value symbols for the rANS histogram,
+   encode and decode, positions and values for the positions decode) plus
+   edge cases; one frame against the host oracle; every stream deflated on
+   the card against native.deflate_sparse; CUDA-event times beside each
+   kernel's bound and, where one PyTorch call computes the same function,
+   that call's time;
+4. the scheme-0 slice: ReCoDeServer('batch') with 2 thread-mode nodes on 16
+   frames of 4096^2 uint16 (L1, mode 1, scheme 0, 12-bit; device entropy,
+   the default on the card) -> merge_parts -> ReCoDeReader.read_frames_dense,
+   bit-exact against the data and against the host sparse decode, with
+   every kernel of the path launched on the way;
 5. entropy paths: one node's part file of the same frames written with
-   device entropy and with host entropy, byte-equal, and both write times.
+   device entropy and with host entropy, byte-equal, and both write times;
+6. the scheme-12 slice: the same server run with compression scheme 12
+   (interleaved rANS on the card) -> merge_parts -> read_frames_dense
+   through the gap chain and with verify=True, bit-exact; every stream of
+   the merged file decoded by the host rans.decompress; for one batch the
+   device coders on CUDA tensors equal the same coders on CPU tensors.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -40,13 +48,14 @@ import numpy as np
 import torch
 
 import pyrecode_tpu_torch as port
-from pyrecode_tpu import native, oracle
-from pyrecode_tpu.constants import rc_cfg as rc
-from pyrecode_tpu.codecs.dyndeflate import quantize_bound
-from pyrecode_tpu.writer import _bucket_for
-from pyrecode_tpu_torch.codecs import dyndeflate
+from pyrecode_tpu_torch import native, oracle
+from pyrecode_tpu_torch.codecs import dyndeflate, rans
+from pyrecode_tpu_torch.codecs.dyndeflate import quantize_bound
+from pyrecode_tpu_torch.constants import rc_cfg as rc
 from pyrecode_tpu_torch.ops import (_build, _launch, hopper_bitpack, hopper_decode, hopper_deflate,
-                                    hopper_encode)
+                                    hopper_encode, hopper_rans)
+from pyrecode_tpu_torch.ops.encode import encode_frames_auto
+from pyrecode_tpu_torch.writer import _bucket_for
 
 REPO = Path(__file__).resolve().parent
 SEED = 20261016
@@ -63,7 +72,19 @@ KERNELS = {
     "bitunpack12": ("pyrecode_tpu_torch/csrc/bitpack12.cu",
                     "pyrecode_tpu/ops/pallas_bitpack.py:178"),
     "decode_l1": ("pyrecode_tpu_torch/csrc/decode_l1.cu", "pyrecode_tpu/ops/pallas_decode.py:269"),
+    "rans_hist": ("pyrecode_tpu_torch/csrc/rans_hist.cu", "pyrecode_tpu/ops/pallas_rans.py:809"),
+    "rans_encode": ("pyrecode_tpu_torch/csrc/rans_encode.cu",
+                    "pyrecode_tpu/ops/pallas_rans.py:319"),
+    "rans_decode": ("pyrecode_tpu_torch/csrc/rans_decode.cu",
+                    "pyrecode_tpu/ops/pallas_rans.py:674"),
+    "posdecode": ("pyrecode_tpu_torch/csrc/posdecode.cu", "pyrecode_tpu/ops/pallas_decode.py:457"),
 }
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
+# the kernels each slice's main path must launch
+SCHEME0_KERNELS = ("encode_l1", "bitpack12", "tokenize", "tokenize_compact", "assemble",
+                   "bitunpack12", "decode_l1")
+SCHEME12_KERNELS = ("encode_l1", "encode_l1_positions", "bitpack12", "rans_hist", "rans_encode",
+                    "bitunpack12", "rans_decode", "posdecode", "decode_l1")
 
 
 def card() -> str:
@@ -122,6 +143,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def io_bytes(*items) -> int:
+    """Bytes of tensors (each read or written once), or of nested tuples of them."""
+    total = 0
+    for x in items:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            total += io_bytes(*x)
+    return total
+
+
+def measure(entry, err: int, reps: int, plain_reps: int) -> dict:
+    """CUDA-event times of a kernel, its twin and the library call (if any),
+    and the kernel's bound: the bytes it must move over the card's memory
+    rate (every kernel here does a few integer operations per byte)."""
+    kernel, plain, nbytes, library = entry
+    return {"max_abs_err": err, "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, plain_reps),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": cuda_ms(library, reps) if library is not None else None}
 
 
 def deflate_battery(rng):
@@ -199,18 +241,195 @@ def check_deflate(device, rng, check, bitmap, packed, plens):
             cols = min(streams.shape[1], quantize_bound(int(lens.max()), hopper_deflate.TILE))
             asm_tok = comp if 2 * n_tok <= cols else \
                 tok.view(torch.int16)[:, :cols].contiguous().view(torch.uint16)
+            # no PyTorch call computes a deflate token stream or bit assembly
             timed[what] = {
                 "tokenize": (lambda s=streams, n=lengths: hopper_deflate.tokenize(s, n),
-                             lambda s=streams, n=lengths: hopper_deflate.tokenize_plain(s, n)),
+                             lambda s=streams, n=lengths: hopper_deflate.tokenize_plain(s, n),
+                             io_bytes(streams, lengths, tok, hist, adler), None),
                 "tokenize_compact": (
                     lambda s=streams, n=lengths, b=n_tok: hopper_deflate.tokenize_compact(s, n, b),
                     lambda s=streams, n=lengths, b=n_tok:
-                        hopper_deflate.tokenize_compact_plain(s, n, b)),
+                        hopper_deflate.tokenize_compact_plain(s, n, b),
+                    io_bytes(streams, lengths, hopper_deflate.tokenize_compact(streams, lengths,
+                                                                               n_tok)), None),
                 "assemble": (
                     lambda t=asm_tok, a=tables, o=out_bound: hopper_deflate.assemble(t, *a, o),
                     lambda t=asm_tok, a=tables, o=out_bound:
-                        hopper_deflate.assemble_plain(t, *a, o)),
+                        hopper_deflate.assemble_plain(t, *a, o),
+                    io_bytes(asm_tok, tables, hopper_deflate.assemble(asm_tok, *tables, out_bound)),
+                    None),
             }
+    return timed
+
+
+def rans_tables(hist):
+    """Each stream's quantized frequencies (B, 4096) int32 and their prefix,
+    from a histogram, as the scheme-12 coders build them on the host."""
+    freq = np.stack([rans.quantize_freqs(h).astype(np.int32) for h in hist.cpu().numpy()])
+    cum = np.zeros_like(freq)
+    cum[:, 1:] = np.cumsum(freq, axis=1)[:, :-1]
+    return freq, cum
+
+
+def reversed_bodies(body, counts):
+    """(B, max count) uint8 of each stream's body reversed, as the decoder
+    reads it, and the body lengths."""
+    n = counts.cpu().numpy()
+    rev = np.zeros((body.shape[0], max(int(n.max()), 1)), np.uint8)
+    host = body.cpu().numpy()
+    for b in range(body.shape[0]):
+        rev[b, :n[b]] = host[b, :n[b]][::-1]
+    return torch.from_numpy(rev).to(body.device), counts
+
+
+def check_rans_stream(device, check, what, syms, m, groups_list=(1,)):
+    """Histogram, encode and decode of symbol streams (B, NPAD) int32 with
+    counts m (B,) int32 against their twins; the decode must give the
+    symbols back.  Returns the encode's and decode's arguments at the last
+    groups for timing."""
+    hist = hopper_rans.rans_hist(syms, m)
+    check("rans_hist", [hist], [hopper_rans.rans_hist_plain(syms, m)], what)
+    freq, cum = rans_tables(hist)
+    freq_t, cum_t = torch.from_numpy(freq).to(device), torch.from_numpy(cum).to(device)
+    tables = torch.from_numpy(np.stack([hopper_rans.decode_tables(f) for f in freq])).to(device)
+    out_bound = 2 * int(m.max()) + 16
+    npad = max(int(m.max()), 1)
+    for groups in groups_list:
+        enc_args = (syms, freq_t, cum_t, m, out_bound, groups)
+        body, states, counts = hopper_rans.rans_encode(*enc_args)
+        check("rans_encode", [body, states, counts], hopper_rans.rans_encode_plain(*enc_args),
+              f"{what}, groups {groups}")
+        expect(bool((counts <= out_bound).all()), "rANS body over its bound")
+        dec_args = (*reversed_bodies(body, counts), states, m, tables, npad, groups)
+        got = hopper_rans.rans_decode(*dec_args)
+        check("rans_decode", got, hopper_rans.rans_decode_plain(*dec_args),
+              f"{what}, groups {groups}")
+        live = torch.arange(npad, device=device)[None, :] < m[:, None].to(torch.int64)
+        expect(not bool(got[1].any()) and torch.equal(got[0], torch.where(live, syms[:, :npad], 0)),
+               f"rANS decode of encode differs from the symbols: {what}, groups {groups}")
+    return enc_args, dec_args, freq
+
+
+def check_rans(device, rng, check, frames, thr, out_size, packed):
+    """Phase 3, scheme 12: the encode with positions, the rANS histogram,
+    encode and decode, and the positions decode against their twins on the
+    slice batch's gap and value symbols and on an edge battery (m = 0, m not
+    a multiple of 1024, a one-symbol alphabet, all 4096 symbols, a stream of
+    more than 2^21 symbols at groups 8, ~20% foreground frames whose bitmaps
+    take the 8-bit symbol mode).  Returns, for the gap and the value
+    symbols, timing entries of each new kernel at the main path's inputs."""
+    B, H, W = frames.shape
+    got = hopper_encode.encode_l1(frames, thr, out_size, True, True, 12)
+    check("encode_l1", got, hopper_encode.encode_l1_plain(frames, thr, out_size, True, True, 12),
+          "slice, with positions")
+    _, comp, counts, _, pos = got
+    valid = torch.arange(pos.shape[1], device=device)[None, :] < counts[:, None]
+    prev = torch.cat([torch.full((B, 1), -1, dtype=torch.int32, device=device), pos[:, :-1]], 1)
+    gaps = torch.where(valid, pos - prev - 1, 0).clamp(max=rans.GAP_ESCAPE - 1).contiguous()
+    values = hopper_bitpack.bitunpack12(packed)
+    slice_streams = {"slice gaps": (gaps, counts), "slice values": (values, counts)}
+    timed = {}
+    for what, (syms, m) in slice_streams.items():
+        enc_args, dec_args, _ = check_rans_stream(device, check, what, syms, m)
+        flat = (torch.arange(B, device=device)[:, None] * 4096 + syms)[
+            torch.arange(syms.shape[1], device=device)[None, :] < m[:, None]]
+        n_sym = int(m.sum())
+        body_bytes = int(hopper_rans.rans_encode(*enc_args)[2].sum())
+        timed[what] = {
+            "rans_hist": (lambda s=syms, k=m: hopper_rans.rans_hist(s, k),
+                          lambda s=syms, k=m: hopper_rans.rans_hist_plain(s, k),
+                          4 * n_sym + 4 * B * 4096,
+                          lambda f=flat: torch.bincount(f, minlength=B * 4096)),
+            "rans_encode": (lambda a=enc_args: hopper_rans.rans_encode(*a),
+                            lambda a=enc_args: hopper_rans.rans_encode_plain(*a),
+                            4 * n_sym + io_bytes(*enc_args[1:4]) + body_bytes
+                            + io_bytes(*hopper_rans.rans_encode(*enc_args)[1:]), None),
+            "rans_decode": (lambda a=dec_args: hopper_rans.rans_decode(*a),
+                            lambda a=dec_args: hopper_rans.rans_decode_plain(*a),
+                            body_bytes + io_bytes(*dec_args[1:5])
+                            + io_bytes(hopper_rans.rans_decode(*dec_args)), None),
+        }
+
+    # the edge battery of symbol streams
+    long = (1 << 21) + 1000
+    edge = np.minimum(rng.exponential(8.0, (5, long)).astype(np.int64), 4095).astype(np.int32)
+    edge[2] = 9
+    edge[3] = rng.integers(0, 4096, long)
+    m_edge = np.array([0, 70001, 5000, 65537, long], np.int32)
+    check_rans_stream(device, check, "edge battery", torch.from_numpy(edge).to(device),
+                      torch.from_numpy(m_edge).to(device), groups_list=(1, 8))
+
+    # positions decode of the slice, and of corrupt positions
+    dense, overflow = hopper_decode.posdecode(pos, comp, counts, H, W)
+    check("posdecode", [dense, overflow], hopper_decode.posdecode_plain(pos, comp, counts, H, W),
+          "slice")
+    expect(not bool(overflow.any()) and torch.equal(
+        dense.view(torch.int16), hopper_decode.decode_l1(got[0], comp, H, W)[0].view(torch.int16)),
+        "posdecode differs from the bitmap decode")
+    bad = pos[:1].repeat(4, 1)          # frame 0 clean, then three corrupt copies
+    bad_vals = comp[:1].repeat(4, 1)
+    bad[1, 5] = H * W
+    bad[2, 7] = bad[2, 6]
+    over = counts[:1].repeat(4)
+    over[3] = pos.shape[1] + 1
+    flags = hopper_decode.posdecode(bad, bad_vals, over, H, W)[1]
+    check("posdecode", [flags], [hopper_decode.posdecode_plain(bad, bad_vals, over, H, W)[1]],
+          "corrupt positions")
+    expect(flags.tolist() == [False, True, True, True],
+           f"posdecode overflow flags {flags.tolist()}")
+    n_pos = int(counts.sum())
+    idx = torch.where(valid, pos, H * W).to(torch.int64)
+    src = comp.to(torch.int16)
+    timed["slice gaps"]["posdecode"] = (
+        lambda: hopper_decode.posdecode(pos, comp, counts, H, W),
+        lambda: hopper_decode.posdecode_plain(pos, comp, counts, H, W),
+        8 * n_pos + io_bytes(counts, dense, overflow),
+        lambda: torch.zeros((B, H * W + 1), dtype=torch.int16, device=device).scatter_(1, idx, src))
+
+    # ~20% foreground: the bitmaps take the 8-bit symbol mode (2^21 symbols
+    # a stream at 4096^2, so 8 lane groups) and read through the symbol chain
+    if H * W // 8 < 1 << 21:
+        print("  20% frames: skipped, frames too small for device-coded 8-bit bitmaps")
+        return timed
+    dense_np, dark20 = make_frames(rng, B, H, W, occupancy=0.2)
+    thr20_np = dark20 + EPSILON
+    thr20 = torch.from_numpy(thr20_np).to(device)
+    dframes = torch.from_numpy(dense_np).to(device)
+    dcounts = hopper_encode.encode_l1_plain(dframes, thr20, 0, with_values=False)[2]
+    bm20, comp20, c20, _, _ = hopper_encode.encode_l1(
+        dframes, thr20, _bucket_for(int(dcounts.max()), H * W), True, True, 12)
+    full = torch.full((B,), bm20.shape[1], dtype=torch.int32, device=device)
+    check_rans_stream(device, check, "20% bitmaps as 8-bit symbols", bm20.to(torch.int32), full,
+                      groups_list=(8,))
+    # the writer's own route: one node writes the frames with the card's
+    # default device entropy, and the reader takes the symbol chain
+    with tempfile.TemporaryDirectory(prefix="tmp_chip_smoke_", dir=REPO) as tmp:
+        writer = port.ReCoDeWriter("dense", dark_data=dark20, output_directory=tmp,
+                                   input_params=slice_params(B, H, W, 1, scheme=12),
+                                   device=device, buffer_size_in_frames=B)
+        expect(writer._device_entropy, "scheme-12 device entropy is not the default on the card")
+        writer.start()
+        writer.run(dense_np)
+        writer.close()
+        reader = port.ReCoDeReader(port.merge_parts(tmp, "dense.rc1", 1), device=device)
+        reader.open()
+        records = [reader.get_next_frame_raw()[z]["data"] for z in range(B)]
+        read = reader.read_frames_dense(0, B)
+        reader.close()
+    p20 = hopper_bitpack.bitpack12(comp20).cpu().numpy()
+    for i, rec in enumerate(records):
+        h = rans._parse_header(rec["binary_map"])
+        expect(h.get("sym_bits") == 8 and not h["gap"] and h["nways"] == 8192,
+               f"20% frame {i}: the writer did not code its bitmap as 8-bit symbols at 8192 lanes")
+        expect(rans.decompress(rec["binary_map"]) == bm20[i].cpu().numpy().tobytes(),
+               f"20% frame {i}: the bitmap stream does not decode to the bitmap")
+        plen = (int(c20[i]) * 12 + 7) // 8
+        expect(rans.decompress(rec["pixvals"]) == p20[i, :plen].tobytes(),
+               f"20% frame {i}: the value stream does not decode to the packed values")
+    expect(np.array_equal(read, np.where(dense_np > thr20_np, dense_np - thr20_np, 0)),
+           "the symbol read chain of 20% frames differs from the residuals")
+    print("  20% frames: the writer coded the bitmaps as 8-bit symbols at 8192 lanes; host "
+          "decode and the symbol read chain exact")
     return timed
 
 
@@ -309,44 +528,67 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
 
     plens = (counts_dev * 12 + 7) // 8
     deflate_timed = check_deflate(device, rng, check, bitmap, packed, plens)
+    rans_timed = check_rans(device, rng, check, frames, thr, out_size, packed)
 
     if device.type != "cuda":
-        return {name: {"max_abs_err": e, "ms": None, "plain_ms": None} for name, e in err.items()}
+        return {name: {"max_abs_err": e} for name, e in err.items()}
+    # no PyTorch call encodes, packs or decodes these formats
     timed = {
         "encode_l1": (lambda: hopper_encode.encode_l1(frames, thr, out_size),
-                      lambda: hopper_encode.encode_l1_plain(frames, thr, out_size)),
+                      lambda: hopper_encode.encode_l1_plain(frames, thr, out_size),
+                      io_bytes(frames, thr, hopper_encode.encode_l1(frames, thr, out_size)), None),
         "bitpack12": (lambda: hopper_bitpack.bitpack12(comp),
-                      lambda: hopper_bitpack.bitpack12_plain(comp)),
+                      lambda: hopper_bitpack.bitpack12_plain(comp), io_bytes(comp, packed), None),
         "bitunpack12": (lambda: hopper_bitpack.bitunpack12(packed),
-                        lambda: hopper_bitpack.bitunpack12_plain(packed)),
+                        lambda: hopper_bitpack.bitunpack12_plain(packed),
+                        io_bytes(packed, values), None),
         "decode_l1": (lambda: hopper_decode.decode_l1(bitmap, values, height, width),
-                      lambda: hopper_decode.decode_l1_plain(bitmap, values, height, width)),
+                      lambda: hopper_decode.decode_l1_plain(bitmap, values, height, width),
+                      io_bytes(bitmap, values, hopper_decode.decode_l1(bitmap, values, height,
+                                                                       width)), None),
     }
     out = {}
-    for name, (kernel, plain) in timed.items():
-        out[name] = {"max_abs_err": err[name], "ms": cuda_ms(kernel, reps),
-                     "plain_ms": cuda_ms(plain, plain_reps)}
-        print(f"  {name:16s} kernel {out[name]['ms']:.4f} ms, plain twin "
-              f"{out[name]['plain_ms']:.4f} ms (CUDA events, {tuple(frames.shape)} batch)")
+
+    def report(name, what):
+        r = out[name]
+        lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
+        print(f"  {name:16s} kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plain twin "
+              f"{r['plain_ms']:.4f} ms{lib} (CUDA events, {what} of the {tuple(frames.shape)} "
+              "batch)")
+
+    for name, entry in timed.items():
+        out[name] = measure(entry, err[name], reps, plain_reps)
+        report(name, "frames")
+    # kernel #1a: the same launch storing the values' positions (scheme 12)
+    pos_entry = (lambda: hopper_encode.encode_l1(frames, thr, out_size, True, True, 12),
+                 lambda: hopper_encode.encode_l1_plain(frames, thr, out_size, True, True, 12),
+                 io_bytes(frames, thr, hopper_encode.encode_l1(frames, thr, out_size, True, True,
+                                                               12)), None)
+    pos_stats = measure(pos_entry, err["encode_l1"], reps, plain_reps)
+    out["encode_l1"].update({f"positions_{k}": pos_stats[k] for k in ("ms", "plain_ms", "bound_ms")})
+    print(f"  encode_l1        with positions: kernel {pos_stats['ms']:.4f} ms, bound "
+          f"{pos_stats['bound_ms']:.4f} ms, plain twin {pos_stats['plain_ms']:.4f} ms")
     # the kernels line carries the bitmap streams' times (8 MiB a batch)
     for what in ("slice values", "slice bitmaps"):
-        for name, (kernel, plain) in deflate_timed[what].items():
-            out[name] = {"max_abs_err": err[name], "ms": cuda_ms(kernel, reps),
-                         "plain_ms": cuda_ms(plain, plain_reps)}
-            print(f"  {name:16s} kernel {out[name]['ms']:.4f} ms, plain twin "
-                  f"{out[name]['plain_ms']:.4f} ms (CUDA events, {what} of the "
-                  f"{tuple(frames.shape)} batch)")
+        for name, entry in deflate_timed[what].items():
+            out[name] = measure(entry, err[name], reps, plain_reps)
+            report(name, what)
+    # ... and the gap streams' (the bitmaps of scheme 12)
+    for what in ("slice values", "slice gaps"):
+        for name, entry in rans_timed[what].items():
+            out[name] = measure(entry, err[name], reps, plain_reps)
+            report(name, what)
     return out
 
 
-def slice_params(n_frames: int, height: int, width: int, num_threads: int):
-    """L1, mode 1, scheme 0, 12-bit parameters of the slice."""
+def slice_params(n_frames: int, height: int, width: int, num_threads: int, scheme: int = 0):
+    """L1, mode 1, 12-bit parameters of the slice, at compression scheme 0 or 12."""
     params = port.InputParams(dict(
         reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=EPSILON,
         target_bit_depth=12, source_bit_depth=12, num_cols=width, num_rows=height,
         num_frames=n_frames, frame_offset=0, num_calibration_frames=1,
         calibration_frame_offset=0, keep_part_files=1, num_threads=num_threads,
-        l2_statistics=0, l4_centroiding=0, compression_scheme=0, compression_level=1,
+        l2_statistics=0, l4_centroiding=0, compression_scheme=scheme, compression_level=1,
         source_file_type=0, source_header_length=0, keep_calibration_data=1,
         calibration_file_type=0, source_data_type=0, target_data_type=0))
     if not params.validate():
@@ -354,16 +596,18 @@ def slice_params(n_frames: int, height: int, width: int, num_threads: int):
     return params
 
 
-def run_slice(device, data, dark, work_dir: Path, num_threads=2):
-    """Phase 4: server -> part files -> merge -> reader on frames ``data``
-    (n, h, w) u16; returns (launch counts, write s, read s)."""
+def run_slice(device, data, dark, work_dir: Path, num_threads=2, scheme=0):
+    """Phases 4 and 6: server -> part files -> merge -> reader on frames
+    ``data`` (n, h, w) u16 at compression scheme 0 or 12; returns (launch
+    counts of the run, write s, read s, merged file).  Scheme 12 reads
+    through the gap chain, then again with verify=True (the byte path)."""
     n_frames, height, width = data.shape
     thr = dark + EPSILON
     expected = np.where(data > thr, data - thr, 0).astype(np.uint16)
     init_params = port.InitParams("batch", str(work_dir), image_filename="smoke",
                                   log_filename=str(work_dir / "recode.log"),
                                   run_name="chip_smoke", verbosity=0)
-    input_params = slice_params(n_frames, height, width, num_threads)
+    input_params = slice_params(n_frames, height, width, num_threads, scheme)
 
     server = port.ReCoDeServer("batch", device=device)
     port.reset_kernel_launch_counts()
@@ -382,7 +626,7 @@ def run_slice(device, data, dark, work_dir: Path, num_threads=2):
         for key, value in m.items():
             if key.endswith("_time") and key != "run_data_read_time":
                 stages[key] = stages.get(key, 0.0) + value.total_seconds()
-    print("writer stage seconds, summed over nodes: "
+    print(f"scheme {scheme} writer stage seconds, summed over nodes: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
     reader = port.ReCoDeReader(merged, device=device)
@@ -390,17 +634,75 @@ def run_slice(device, data, dark, work_dir: Path, num_threads=2):
     t0 = time.perf_counter()
     dense = reader.read_frames_dense(0, n_frames)
     read_s = time.perf_counter() - t0
-    launches = port.kernel_launch_counts()
     if not np.array_equal(dense, expected):
-        raise AssertionError("read_frames_dense differs from the data's residuals")
+        raise AssertionError(f"scheme {scheme}: read_frames_dense differs from the residuals")
+    if scheme == 12:
+        t0 = time.perf_counter()
+        verified = reader.read_frames_dense(0, n_frames, verify=True)
+        print(f"scheme 12 read with verify=True (byte path, adler-checked): "
+              f"{time.perf_counter() - t0:.3f} s")
+        if not np.array_equal(verified, expected):
+            raise AssertionError("scheme 12: read_frames_dense(verify=True) differs")
+    launches = port.kernel_launch_counts()
     for z in range(n_frames):
         host = reader.get_frame(z)[z]["data"].toarray()
         if not np.array_equal(host, expected[z]):
-            raise AssertionError(f"host sparse decode of frame {z} differs")
+            raise AssertionError(f"scheme {scheme}: host sparse decode of frame {z} differs")
     reader.close()
-    print(f"slice: {n_frames} frames {height}x{width}, {num_threads} nodes, merged "
-          f"{Path(merged).stat().st_size} bytes; read_frames_dense and get_frame bit-exact")
-    return launches, write_s, read_s
+    print(f"slice, scheme {scheme}: {n_frames} frames {height}x{width}, {num_threads} nodes, "
+          f"merged {Path(merged).stat().st_size} bytes; read_frames_dense and get_frame bit-exact")
+    return launches, write_s, read_s, merged
+
+
+def check_scheme12_streams(device, data, dark, merged, batch=4):
+    """Phase 6: every stream of the scheme-12 merged file decodes through the
+    host rans.decompress to the raw bitmap and packed values the encode
+    kernel makes; for the first batch the device coders on CUDA tensors give
+    the bytes they give on CPU tensors (the twins)."""
+    n, height, width = data.shape
+    thr = torch.from_numpy((dark + EPSILON).astype(np.uint16)).to(device)
+    reader = port.ReCoDeReader(merged, device=device)
+    reader.open()
+    records = [reader.get_next_frame_raw()[z]["data"] for z in range(n)]
+    reader.close()
+    kinds = {}
+    for start in range(0, n, batch):
+        frames = torch.from_numpy(data[start:start + batch]).to(device)
+        fg = hopper_encode.encode_l1_plain(frames, thr, 0, with_values=False)[2]
+        bitmap, comp, counts, _ = hopper_encode.encode_l1(
+            frames, thr, 2 * ((int(fg.max()) + 1) // 2))
+        packed = hopper_bitpack.bitpack12(comp)
+        for i in range(frames.shape[0]):
+            rec = records[start + i]
+            plen = (int(counts[i]) * 12 + 7) // 8
+            for stream, raw in ((rec["binary_map"], bitmap[i].cpu().numpy().tobytes()),
+                                (rec["pixvals"], packed[i, :plen].cpu().numpy().tobytes())):
+                h = rans._parse_header(stream)
+                kind = "stored" if "stored" in h else \
+                    f"{'gap' if h.get('gap') else 'symbol'}/{h['nways']} lanes"
+                kinds[kind] = kinds.get(kind, 0) + 1
+                expect(rans.decompress(stream) == raw,
+                       f"frame {start + i}: a stream does not decode to its raw bytes")
+    print(f"host rans.decompress: all {2 * n} streams of the merged file decode to the raw "
+          f"streams ({kinds})")
+
+    frames = torch.from_numpy(data[:batch]).to(device)
+    fg = hopper_encode.encode_l1_plain(frames, thr, 0, with_values=False)[2]
+    res = encode_frames_auto(frames, thr, 1, 12,
+                             max_values=_bucket_for(int(fg.max()), height * width),
+                             with_positions=True)
+    lens = np.full(batch, res.bitmap.shape[1], np.int32)
+    plens = res.packed_len.cpu().numpy()
+    def coded(where):
+        return (rans.rans_gaps_batch_device(res.bitmap.to(where), lens,
+                                            positions=res.positions.to(where),
+                                            pos_counts=res.counts.to(where)),
+                rans.rans_symbols_batch_device(res.packed.to(where), plens, 12))
+
+    expect(coded(device) == coded(torch.device("cpu")),
+           "scheme-12 coders on CUDA and CPU tensors differ")
+    print(f"scheme-12 coders: gap and symbol streams of {batch} frames equal on CUDA and CPU "
+          "tensors")
 
 
 def compare_entropy_paths(device, data, dark, work_dir: Path):
@@ -453,29 +755,47 @@ def main() -> None:
 
     data, dark = make_frames(rng, 16, 4096, 4096)
     work_dir = Path(tempfile.mkdtemp(prefix="tmp_chip_smoke_", dir=REPO))
+    paths = {0: SCHEME0_KERNELS, 12: SCHEME12_KERNELS}
+    launches, walls = {}, {}
     try:
-        (work_dir / "slice").mkdir()
-        launches, write_s, read_s = run_slice(device, data, dark, work_dir / "slice")
-        print(f"launches in the slice: {launches}")
-        missing = [name for name, n in launches.items() if n == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched by the main path: {missing}")
-        entropy_s = compare_entropy_paths(device, data, dark, work_dir)
+        for scheme in (0, 12):
+            (work_dir / f"slice{scheme}").mkdir()
+            counts, write_s, read_s, merged = run_slice(device, data, dark,
+                                                        work_dir / f"slice{scheme}", scheme=scheme)
+            launches[scheme], walls[scheme] = counts, (write_s, read_s)
+            print(f"launches in the scheme-{scheme} slice: {counts}")
+            missing = [name for name in paths[scheme] if counts[name] == 0]
+            if missing:
+                raise AssertionError(f"kernels not launched by the scheme-{scheme} path: {missing}")
+            if scheme == 0:
+                entropy_s = compare_entropy_paths(device, data, dark, work_dir)
+            else:
+                check_scheme12_streams(device, data, dark, merged)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     raw = data.nbytes
-    print(f"write (server + merge, device entropy): {write_s:.3f} s, "
-          f"{raw / write_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
-    print(f"read (read_frames_dense): {read_s:.3f} s, {raw / read_s / 1e9:.3f} GB/s of raw "
-          f"frames [{gpu}]")
+    for scheme, (write_s, read_s) in walls.items():
+        print(f"scheme {scheme} write (server + merge, device entropy): {write_s:.3f} s, "
+              f"{raw / write_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
+        print(f"scheme {scheme} read (read_frames_dense): {read_s:.3f} s, "
+              f"{raw / read_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
     for device_entropy, name in ((True, "device"), (False, "host")):
         runs = ", ".join(f"{t:.3f}" for t in entropy_s[device_entropy])
-        print(f"write (one writer, {name} entropy): {runs} s [{gpu}]")
+        print(f"write (one writer, scheme 0, {name} entropy): {runs} s [{gpu}]")
 
+    kernels = []
+    for name in KERNELS:
+        row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+               "replaces": KERNELS[name][1],
+               "launches": launches[0][name] + launches[12][name],
+               "launches_by_path": {"scheme0": launches[0][name], "scheme12": launches[12][name]},
+               **kernel_stats[name]}
+        if name == "encode_l1":
+            row["positions_launches"] = (launches[0]["encode_l1_positions"]
+                                         + launches[12]["encode_l1_positions"])
+        kernels.append(row)
     print(gpu)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-         "launches": launches[name], **kernel_stats[name]} for name in KERNELS]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,28 +1,30 @@
 """pyrecode_tpu_torch — the ReCoDe codec on PyTorch and CUDA for NVIDIA Hopper.
 
-A port of :mod:`pyrecode_tpu` (JAX on a TPU), slice by slice.  This slice is
-the main operating point: L1 reduction, ``rc_operation_mode=1``,
-``compression_scheme=0``, 12-bit values, through
+A port of :mod:`pyrecode_tpu` (JAX on a TPU), slice by slice, through
 
     ReCoDeServer('batch') -> ReCoDeWriter part files -> merge_parts
     -> ReCoDeReader.read_frames_dense
 
-Hand-written CUDA kernels for ``sm_90a`` (``csrc/``) carry its device
-work: the fused L1 encode, the 12-bit pack, the deflate tokenizer (dense
-and compacted) and bit assembler of the device entropy stage, the 12-bit
-unpack and the L1 decode.  Huffman tables, headers, parameters, container
-layout, host entropy coding and merge are the JAX package's JAX-free
-modules, imported, not copied.
+at L1 reduction, ``rc_operation_mode=1`` and 12-bit values, with
+compression scheme 0 (dynamic deflate) or 12 (interleaved rANS).
+Hand-written CUDA kernels for ``sm_90a`` (``csrc/``) carry the device work:
+the fused L1 encode (with the values' pixel positions for scheme 12), the
+12-bit pack and unpack, the deflate tokenizer and bit assembler, the rANS
+histogram, encode and decode, the L1 decode and the positions decode.
+
+The package is self-contained: it imports ``torch`` and never ``jax``, and
+nothing of :mod:`pyrecode_tpu`.  Headers, parameters, container layout,
+host entropy coding and merge are its own copies of the JAX package's
+JAX-free modules; the native host library builds from the repository's
+``native/recode_host.cpp`` into ``pyrecode_tpu_torch/_build/``.
 
 Writer, reader and server take ``device=`` ("cuda" by default; "cpu" runs
-each kernel's plain PyTorch twin).  On CUDA the writer deflates on the
+each kernel's plain PyTorch twin).  On CUDA the writer entropy-codes on the
 device by default (``device_entropy``), as the JAX writer does on a TPU.
-This package imports ``torch`` and never ``jax``.
 """
 
-from pyrecode_tpu.params import InitParams, InputParams
-
-from .ops import hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode
+from .ops import hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode, hopper_rans
+from .params import InitParams, InputParams
 from .reader import ReCoDeReader, merge_parts
 from .server import ReCoDeServer
 from .writer import ReCoDeWriter
@@ -40,17 +42,23 @@ __all__ = [
 
 _COUNTERS = {
     "encode_l1": hopper_encode.LAUNCHES,
+    "encode_l1_positions": hopper_encode.POSITIONS_LAUNCHES,
     "bitpack12": hopper_bitpack.PACK_LAUNCHES,
     "tokenize": hopper_deflate.TOKENIZE_LAUNCHES,
     "tokenize_compact": hopper_deflate.TOKENIZE_COMPACT_LAUNCHES,
     "assemble": hopper_deflate.ASSEMBLE_LAUNCHES,
+    "rans_hist": hopper_rans.HIST_LAUNCHES,
+    "rans_encode": hopper_rans.ENCODE_LAUNCHES,
+    "rans_decode": hopper_rans.DECODE_LAUNCHES,
     "bitunpack12": hopper_bitpack.UNPACK_LAUNCHES,
     "decode_l1": hopper_decode.LAUNCHES,
+    "posdecode": hopper_decode.POSDECODE_LAUNCHES,
 }
 
 
 def kernel_launch_counts() -> dict:
-    """Launches of each kernel wrapper since the last reset."""
+    """Launches of each kernel wrapper since the last reset
+    (``encode_l1_positions``: those of the encode that stored positions)."""
     return {name: counter.value for name, counter in _COUNTERS.items()}
 
 

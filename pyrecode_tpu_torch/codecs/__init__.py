@@ -1,1 +1,12 @@
-"""Entropy coding of the port on torch tensors: :mod:`.dyndeflate`."""
+"""Entropy coding of the port: the backend registry (scheme codes 0-12) and
+the scheme-0 (:mod:`.dyndeflate`) and scheme-12 (:mod:`.rans`) coders.
+
+The registry is the port's own copy of pyrecode_tpu/codecs/backends.py
+(reference ``recode_compressors.py``); ``dyndeflate`` and ``rans`` hold the
+numpy host halves of their JAX counterparts and the device halves on torch
+tensors, through the port's kernels.
+"""
+
+from .backends import Codec, get_codec, import_checks
+
+__all__ = ["Codec", "get_codec", "import_checks"]

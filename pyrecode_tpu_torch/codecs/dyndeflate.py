@@ -1,13 +1,14 @@
-"""Device deflate: scheme-0 zlib streams from the tokenize and assemble kernels.
+"""Scheme-0 dynamic deflate: the host helpers and the device entropy stage.
 
-Port of the device half of pyrecode_tpu/codecs/dyndeflate.py
-(``deflate_batch_device``, ``_tables_assemble_finish``) on torch tensors.
-Tokens, histograms, adler32 and the bit assembly run on the streams'
-device (:mod:`..ops.hopper_deflate`); the host builds each stream's
-canonical Huffman tables, block header and token LUT with
-``native.entropy_host_tables``, and splices the end-of-block code, the
-stored-block fallback and the adler trailer with the JAX package's own
-helpers.  Every stream is byte-identical to ``native.deflate_sparse``.
+The port's own copy of the numpy half of pyrecode_tpu/codecs/dyndeflate.py
+(the per-byte tokenizer reference, the length-code tables, and the stream
+finishing: end-of-block splice, stored-block fallback, adler trailer), and
+the port of its device half (``deflate_batch_device``,
+``_tables_assemble_finish``) on torch tensors.  Tokens, histograms, adler32
+and the bit assembly run on the streams' device (:mod:`..ops.hopper_deflate`);
+the host builds each stream's canonical Huffman tables, block header and
+token LUT with ``native.entropy_host_tables``.  Every stream is
+byte-identical to ``native.deflate_sparse``.
 
 Against the JAX version: no ``interpret`` (a CPU tensor runs the kernels'
 twins), no ``compact`` switch (compaction is chosen as the JAX default
@@ -15,19 +16,153 @@ chooses it), no environment switches, one token capacity instead of the
 TPU's capacity buckets, and one read of all bodies instead of one per
 stream.  The native host library is required: without it the JAX
 version's three-step table path fails too (``native.dyn_tables`` raises).
+
+The tokenizer rule (the native encoder's, made data-parallel): every byte
+emits at most one token, decided by its offset ``p`` in its run and its
+distance ``d`` to the run's end:
+
+ * run length < 4          -> every byte is a literal
+ * p == 0                  -> literal (the run's leading literal)
+ * p >= 1, run >= 4, q = p-1:
+     q % 258 == 0 and d >= 261          -> match take=258
+     q % 258 == 0 and d in {259, 260}   -> match take=255   (keep tail >= 3)
+     q % 258 == 0 and 3 <= d <= 258     -> match take=d     (final take)
+     q % 258 == 255 and d in {4, 5}     -> match take=d     (post-255 tail)
+     otherwise                          -> no token (covered by a match)
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pyrecode_tpu import native
-from pyrecode_tpu.codecs.dyndeflate import finish_stream, quantize_bound, splice_eob, stored_blocks
-
+from .. import native
 from ..ops import hopper_deflate as hd
+
+# RFC 1951 length-code table: codes 257+c encode match lengths
+# [LEN_BASE[c], LEN_BASE[c+1]) with LEN_EXTRA[c] extra bits
+LEN_BASE = np.array([3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
+                     35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258],
+                    dtype=np.int32)
+LEN_EXTRA = np.array([0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3,
+                      3, 4, 4, 4, 4, 5, 5, 5, 5, 0], dtype=np.int32)
+
+# token index: 0..255 = literal byte, 256..511 = match take (3 + idx-256),
+# 512 = no token.  (take 258 -> idx 511.)
+NO_TOKEN = 512
+
+
+def length_code(take: np.ndarray) -> np.ndarray:
+    """Length-code index c (0..28) for match length 3..258."""
+    return (np.searchsorted(LEN_BASE, np.asarray(take, dtype=np.int32),
+                            side="right") - 1).astype(np.int32)
+
+
+def tokenize_bytes_np(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-byte token decision (numpy reference of the rule above).
+
+    Returns (lut_idx i32[n], sym i32[n]): the token index per byte
+    (NO_TOKEN for covered bytes) and the literal/length symbol (0..285, or -1
+    for covered bytes) for histogramming.
+    """
+    x = np.asarray(x, dtype=np.uint8)
+    n = x.size
+    if n == 0:
+        return (np.zeros(0, np.int32),) * 2
+    idx = np.arange(n, dtype=np.int32)
+    change = np.ones(n, dtype=bool)
+    change[1:] = x[1:] != x[:-1]
+    # s: index of this byte's run start (last change at or before i)
+    s = np.maximum.accumulate(np.where(change, idx, -1).astype(np.int32))
+    # e: run end (next change after i, or n)
+    starts = np.flatnonzero(change).astype(np.int32)
+    run_of = np.cumsum(change, dtype=np.int32)
+    run_of -= 1                              # run ordinal per byte
+    ends = np.append(starts[1:], np.int32(n))
+    e = ends[run_of]
+    p = idx - s
+    d = e - idx
+    run = e - s
+
+    is_lit = (p == 0) | (run < 4)
+    q = p - 1
+    qm = q % np.int32(258)
+    m0 = (qm == 0) & ~is_lit
+    take = np.where(d >= 261, np.int32(258),
+                    np.where(d >= 259, np.int32(255), d))
+    is_match0 = m0 & (d >= 3)
+    is_match255 = (qm == 255) & ~is_lit & ((d == 4) | (d == 5))
+    take = np.where(is_match255, d, take)
+    is_match = is_match0 | is_match255
+
+    lut_idx = np.full(n, NO_TOKEN, dtype=np.int32)
+    lut_idx[is_lit] = x[is_lit]
+    lut_idx[is_match] = (256 + take[is_match] - 3).astype(np.int32)
+
+    sym = np.full(n, -1, dtype=np.int32)
+    sym[is_lit] = x[is_lit]
+    sym[is_match] = 257 + length_code(take[is_match])
+    return lut_idx, sym
+
+
+def quantize_bound(n: int, ch: int) -> int:
+    """Round ``n`` up to the next quarter-octave grid point that is a
+    multiple of ``ch`` ({1, 1.25, 1.5, 1.75} x 2^k): token and output
+    bounds stay within 25% of what they hold."""
+    n = max(int(n), 1)
+    m = max((n - 1).bit_length() - 1, 0)
+    step = max(1 << max(m - 2, 0), ch)
+    return max(-(-n // step) * step, ch)
+
+
+def stored_blocks(raw: bytes, n: int) -> bytes:
+    """RFC 1951 stored (btype 00) blocks wrapping ``raw[:n]`` + zlib header."""
+    pieces = [b"\x78\x01"]
+    k = 0
+    while True:
+        take = min(n - k, 65535)
+        final = 1 if k + take >= n else 0
+        pieces.append(bytes([final, take & 0xFF, take >> 8,
+                             (~take) & 0xFF, ((~take) >> 8) & 0xFF]))
+        pieces.append(raw[k: k + take])
+        k += take
+        if k >= n:
+            break
+    return b"".join(pieces)
+
+
+def finish_stream(hdr_bytes: np.ndarray, hdr_bits: int, body: np.ndarray,
+                  body_bits: int, adler: int, n: int,
+                  raw: Optional[bytes] = None) -> bytes:
+    """Assemble the final zlib stream from header + device-packed body.
+
+    ``body`` starts at the header's last partial byte (bit offset
+    ``hdr_bits % 8`` within its first byte) and already contains the
+    end-of-block code; ``body_bits`` counts from that byte's bit 0.  Applies
+    the native encoder's stored-block fallback rule (raw bytes required for
+    it) and appends the big-endian adler32.
+    """
+    full_hdr = hdr_bytes[: hdr_bits // 8].tobytes()
+    stream = full_hdr + body[: (body_bits + 7) // 8].tobytes()
+    stored_size = 2 + n + 5 * (n // 65535 + 1)
+    if len(stream) > stored_size and raw is not None:
+        stream = stored_blocks(raw, n)
+    return stream + int(adler).to_bytes(4, "big")
+
+
+def splice_eob(body: np.ndarray, total_bits: int, eob_val: int, eob_len: int
+               ) -> Tuple[np.ndarray, int]:
+    """Append the end-of-block code at bit ``total_bits`` of ``body``."""
+    nfull = total_bits // 8
+    ph = total_bits % 8
+    head = int(body[nfull]) if ph else 0
+    word = head | (int(eob_val) << ph)
+    nb = (ph + eob_len + 7) // 8
+    tail = np.frombuffer(bytes((word >> (8 * i)) & 255 for i in range(nb)),
+                         dtype=np.uint8)
+    return np.concatenate([body[:nfull], tail]), total_bits + eob_len
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -126,7 +261,7 @@ def host_tables(hist_np: np.ndarray) -> HostTables:
         tables = native.entropy_host_tables(hist_np[i, :286].astype(np.uint32), luts[i])
         if tables is None:
             raise RuntimeError("device deflate needs the native host library "
-                               "(pyrecode_tpu.native.available() is False)")
+                               "(native.available() is False)")
         hdr, hdr_bits, eob_val, eob_len, body_bits[i] = tables
         headers.append((hdr, hdr_bits))
         eobs.append((eob_val, eob_len))

@@ -1,8 +1,12 @@
 // Fused L1/L3 encode: threshold -> foreground mask -> LSB-first bitmap ->
-// raster-order compaction of the residuals frame - threshold.
+// raster-order compaction of the residuals frame - threshold, and
+// optionally of each residual's pixel index.
 //
 // Replaces pyrecode_tpu/ops/pallas_encode.py:encode_l1_pallas (kernel
-// built by _build_l1_kernel), plain path with and without values.  The TPU
+// built by _build_l1_kernel), plain path with and without values, and its
+// with_positions output (_compact_chunk_dual_packed, _compact_chunk_dual):
+// the frame's pixel index of every stored value, at the value's rank, with
+// the values masked to their low pos_vbits bits as there.  The TPU
 // kernel builds the bitmap with an MXU packing matmul and compacts through a
 // rank-match selection, a triangular-matmul cumsum and a lane-aligned tail
 // carry; here a warp ballot over 32 consecutive pixels is the bitmap word,
@@ -17,7 +21,9 @@
 //   3. encode_scatter_kernel (with values only): re-reads the bitmap, not
 //      the frame, and gathers frame and threshold only at foreground pixels,
 //      so at ~1% occupancy it moves a small fraction of pass 1's bytes; it
-//      also zero-fills comp[count, out_size).
+//      also zero-fills comp[count, out_size).  With positions it stores
+//      the pixel index beside each value (4 more bytes per foreground
+//      pixel) and zero-fills pos[count, out_size) too.
 // The work is memory-bound: pass 1's dense read of the frame and threshold
 // is the floor, and the design keeps every other pass off the dense frame.
 
@@ -56,6 +62,7 @@ __global__ void encode_scatter_kernel(const uint16_t* __restrict__ frames,
                                       const uint8_t* __restrict__ bitmap,
                                       const int* __restrict__ tile_offsets,
                                       const int* __restrict__ counts, int32_t* __restrict__ comp,
+                                      int32_t* __restrict__ pos, int32_t vmask,
                                       int64_t n_pixels, int64_t n_bytes, int64_t n_tiles,
                                       int64_t out_size) {
     const int64_t b = blockIdx.y;
@@ -64,6 +71,7 @@ __global__ void encode_scatter_kernel(const uint16_t* __restrict__ frames,
     const int warp = threadIdx.x >> 5;
     const uint16_t* f = frames + b * n_pixels;
     int32_t* out = comp + b * out_size;
+    int32_t* out_pos = pos != nullptr ? pos + b * out_size : nullptr;
     const int64_t first = t * TILE_WORDS + warp * WORDS_PER_WARP;
 
     const WarpWords ww = warp_words(bitmap + b * n_bytes, n_bytes, n_pixels, first);
@@ -78,24 +86,31 @@ __global__ void encode_scatter_kernel(const uint16_t* __restrict__ frames,
             const int64_t dst = base + before + __popc(w & below);
             if (dst < out_size) {
                 const int64_t p = (first + k) * 32 + lane;
-                out[dst] = static_cast<int32_t>(f[p]) - static_cast<int32_t>(thr[p]);
+                out[dst] = (static_cast<int32_t>(f[p]) - static_cast<int32_t>(thr[p])) & vmask;
+                if (out_pos != nullptr) out_pos[dst] = static_cast<int32_t>(p);
             }
         }
     }
 
     const int64_t stride = n_tiles * BLOCK;
-    for (int64_t i = counts[b] + t * BLOCK + threadIdx.x; i < out_size; i += stride) out[i] = 0;
+    for (int64_t i = counts[b] + t * BLOCK + threadIdx.x; i < out_size; i += stride) {
+        out[i] = 0;
+        if (out_pos != nullptr) out_pos[i] = 0;
+    }
 }
 
 }  // namespace
 
 // frames (batch, n_pixels) u16, thr (n_pixels) u16 -> bitmap (batch,
 // ceil(n_pixels / 8)) u8, comp (batch, out_size) i32 (with_values only),
-// counts (batch,) i32, overflow (batch,) u8; tiles is (batch,
-// pr_num_tiles(n_pixels)) i32 scratch.  Returns cudaGetLastError().
+// counts (batch,) i32, overflow (batch,) u8; pos (batch, out_size) i32 or
+// null: the pixel index of each value, and then pos_vbits > 0 masks the
+// values to that many bits.  tiles is (batch, pr_num_tiles(n_pixels)) i32
+// scratch.  Returns cudaGetLastError().
 extern "C" int pr_encode_l1(const void* frames, const void* thr, void* bitmap, void* comp,
-                            void* counts, void* overflow, void* tiles, int64_t batch,
-                            int64_t n_pixels, int64_t out_size, int with_values, void* stream) {
+                            void* counts, void* overflow, void* tiles, void* pos, int pos_vbits,
+                            int64_t batch, int64_t n_pixels, int64_t out_size, int with_values,
+                            void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int64_t n_bytes = (n_pixels + 7) / 8;
     const int64_t n_tiles = num_tiles(n_pixels);
@@ -111,8 +126,9 @@ extern "C" int pr_encode_l1(const void* frames, const void* thr, void* bitmap, v
     if (with_values) {
         encode_scatter_kernel<<<grid, BLOCK, 0, s>>>(
             f, t, static_cast<const uint8_t*>(bitmap), static_cast<const int*>(tiles),
-            static_cast<const int*>(counts), static_cast<int32_t*>(comp), n_pixels, n_bytes,
-            n_tiles, out_size);
+            static_cast<const int*>(counts), static_cast<int32_t*>(comp),
+            static_cast<int32_t*>(pos), pos_vbits > 0 ? (1 << pos_vbits) - 1 : -1, n_pixels,
+            n_bytes, n_tiles, out_size);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -81,16 +81,21 @@ def load() -> ctypes.CDLL:
             p, i64 = ctypes.c_void_p, ctypes.c_int64
             lib.pr_bitpack12.argtypes = [p, p, i64, p]
             lib.pr_bitunpack12.argtypes = [p, p, i64, p]
-            lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, i64, i64, i64,
+            lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64, i64,
                                          ctypes.c_int, p]
             lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_tokenize.argtypes = [p, p, p, p, p, p, p, i64, i64, p]
             lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_assemble.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, i64, i64, i64,
                                         p]
+            lib.pr_rans_hist.argtypes = [p, p, p, i64, i64, p]
+            lib.pr_rans_encode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
+            lib.pr_rans_decode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
+            lib.pr_posdecode.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_encode_l1,
                        lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
-                       lib.pr_assemble):
+                       lib.pr_assemble, lib.pr_rans_hist, lib.pr_rans_encode,
+                       lib.pr_rans_decode, lib.pr_posdecode):
                 fn.restype = ctypes.c_int
             for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles):
                 fn.argtypes = [i64]

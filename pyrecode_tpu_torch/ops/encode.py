@@ -28,6 +28,8 @@ class EncodeResult:
     counts : (B,) int32 — foreground pixels
     packed_len : (B,) int32 or None — valid bytes of ``packed`` per frame
     overflow : (B,) bool — the count exceeded the buffer bound
+    positions : (B, max_values) int32 or None — each value's pixel index
+        (``with_positions``), zeros from the count on
     """
 
     bitmap: torch.Tensor
@@ -35,14 +37,19 @@ class EncodeResult:
     counts: torch.Tensor
     packed_len: Optional[torch.Tensor]
     overflow: torch.Tensor
+    positions: Optional[torch.Tensor] = None
 
 
 def encode_frames_auto(frames: torch.Tensor, threshold: torch.Tensor, reduction_level: int,
-                       bit_depth: int, max_values: int) -> EncodeResult:
+                       bit_depth: int, max_values: int,
+                       with_positions: bool = False) -> EncodeResult:
     """Encode (B, H, W) uint16 frames against an (H, W) uint16 threshold.
 
     ``max_values`` bounds the foreground count per frame (rounded up to the
     pack group); a frame above it is flagged in ``overflow``.
+    ``with_positions`` (L1) also returns each value's pixel index, with the
+    values masked to ``bit_depth`` bits, as the JAX writer asks the TPU
+    kernel for scheme-12 device entropy.
     """
     if reduction_level in (2, 4):
         raise NotImplementedError(
@@ -52,12 +59,17 @@ def encode_frames_auto(frames: torch.Tensor, threshold: torch.Tensor, reduction_
     with_values = reduction_level == 1
     g_vals, _ = packed_group_shape(bit_depth)
     out_size = -(-max_values // g_vals) * g_vals if with_values else 0
-    bitmap, comp, counts, overflow = encode_l1(frames, threshold, out_size, with_values)
+    if with_positions and not with_values:
+        raise ValueError("positions come with the values of L1")
+    out = encode_l1(frames, threshold, out_size, with_values, with_positions,
+                    bit_depth if with_positions else 0)
+    bitmap, comp, counts, overflow = out[:4]
     if not with_values:
         return EncodeResult(bitmap, None, counts, None, overflow)
     packed = bitpack_values_device(comp, bit_depth)
     packed_len = (counts * bit_depth + 7) // 8
-    return EncodeResult(bitmap, packed, counts, packed_len, overflow)
+    return EncodeResult(bitmap, packed, counts, packed_len, overflow,
+                        out[4] if with_positions else None)
 
 
 def count_foreground(frames: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""L1 decode kernel (``csrc/decode_l1.cu``) and its twin.
+"""L1 decode kernels (``csrc/decode_l1.cu``, ``csrc/posdecode.cu``) and their twins.
 
 Replaces pyrecode_tpu/ops/pallas_decode.py:decode_l1_pallas after the
 unpack: for a bitmap (B, ceil(H*W/8)) uint8 and unpacked values (B, V)
@@ -11,6 +11,15 @@ int32 it returns
 
 The TPU kernel's capacity-bucket ladder has no counterpart: the values'
 width is the only capacity.
+
+:func:`posdecode` replaces pyrecode_tpu/ops/pallas_decode.py:
+decode_l1_from_positions, the end of the scheme-12 gap read chain: for
+ascending pixel positions (B, OUT) int32 and rank-aligned values (B, OUT)
+int32 it returns dense (B, H, W) uint16 with ``dense[pos[k]] = values[k]``
+(modulo 2**16) for k < counts, else 0, and overflow (B,) bool: a count
+above OUT, or a position outside the frame or not above the one before it
+(a corrupt stream; the dense frame is then unspecified).  The TPU kernel's
+capacity-bucket ladder collapses to this one call.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from . import _launch
 from .bitpack import unpack_bits
 
 LAUNCHES = _launch.LaunchCounter()
+POSDECODE_LAUNCHES = _launch.LaunchCounter()
 
 
 def _check(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: int) -> None:
@@ -71,3 +81,57 @@ def decode_l1(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: in
                    _launch.ptr(overflow), _launch.ptr(counts), _launch.ptr(tiles),
                    B, n, V)
     return dense, overflow
+
+
+def _check_positions(positions: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
+                     height: int, width: int) -> None:
+    _launch.require(positions, "positions", torch.int32, 2)
+    _launch.require(values, "values", torch.int32, 2)
+    _launch.require(counts, "counts", torch.int32, 1)
+    if tuple(values.shape) != tuple(positions.shape):
+        raise ValueError(f"values {tuple(values.shape)} and positions "
+                         f"{tuple(positions.shape)} differ in shape")
+    if counts.shape[0] != positions.shape[0]:
+        raise ValueError("counts and positions hold different numbers of frames")
+    if height * width >= 1 << 31:
+        raise ValueError("frames of 2**31 pixels or more are not supported")
+    if not 0 < positions.shape[0] < 1 << 16:
+        raise ValueError(f"batch must be in 1..65535, got {positions.shape[0]}")
+
+
+def posdecode_plain(positions: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
+                    height: int, width: int):
+    """Plain PyTorch version of :func:`posdecode`, on any device."""
+    _check_positions(positions, values, counts, height, width)
+    B, out = positions.shape
+    n = height * width
+    dense = torch.zeros((B, n), dtype=torch.int32, device=positions.device)
+    overflow = torch.zeros(B, dtype=torch.bool, device=positions.device)
+    for b in range(B):
+        c = int(counts[b])
+        if not 0 <= c <= out:
+            overflow[b] = True
+        c = min(max(c, 0), out)
+        p = positions[b, :c].to(torch.int64)
+        ok = (p >= 0) & (p < n)
+        ok[1:] &= p[1:] > p[:-1]
+        if not bool(ok.all()):
+            overflow[b] = True
+        dense[b, p[ok]] = values[b, :c][ok]
+    return _launch.i32_to_u16(dense).reshape(B, height, width), overflow
+
+
+def posdecode(positions: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
+              height: int, width: int):
+    """Returns (dense (B, H, W) uint16, overflow (B,) bool)."""
+    _check_positions(positions, values, counts, height, width)
+    if _launch.on_host(positions, values, counts):
+        return posdecode_plain(positions, values, counts, height, width)
+    B, out = positions.shape
+    dev = positions.device
+    dense = torch.empty((B, height, width), dtype=torch.uint16, device=dev)
+    overflow = torch.empty(B, dtype=torch.uint8, device=dev)
+    _launch.launch(POSDECODE_LAUNCHES, "pr_posdecode", dev, _launch.ptr(positions),
+                   _launch.ptr(values), _launch.ptr(counts), _launch.ptr(dense),
+                   _launch.ptr(overflow), B, out, height * width)
+    return dense, overflow.to(torch.bool)

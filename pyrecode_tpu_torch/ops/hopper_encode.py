@@ -14,6 +14,14 @@ uint16 and a threshold (H, W) uint16:
   without values).
 
 ``with_values=False`` is L3.
+
+``with_positions=True`` (kernel #1a, the ``with_positions`` output of the
+TPU kernel, pallas_encode.py:342,400) adds a fifth output, pos (B,
+out_size) int32: the pixel index of each stored value within its frame, at
+the value's rank, zeros from ``count`` on.  ``pos_vbits`` > 0 then masks
+the stored values to their low ``pos_vbits`` bits, as the TPU kernel does
+(the scheme-12 symbol alphabet needs it; the packed stream keeps exactly
+those bits anyway).
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ from . import _launch
 from .bitpack import pack_bits
 
 LAUNCHES = _launch.LaunchCounter()
+POSITIONS_LAUNCHES = _launch.LaunchCounter()   # the launches that store positions
 
 
-def _check(frames: torch.Tensor, threshold: torch.Tensor) -> None:
+def _check(frames: torch.Tensor, threshold: torch.Tensor, with_values: bool = True,
+           with_positions: bool = False, pos_vbits: int = 0) -> None:
     _launch.require(frames, "frames", torch.uint16, 3)
     _launch.require(threshold, "threshold", torch.uint16, 2)
     if tuple(threshold.shape) != tuple(frames.shape[1:]):
@@ -37,12 +47,16 @@ def _check(frames: torch.Tensor, threshold: torch.Tensor) -> None:
         raise ValueError("frames of 2**31 pixels or more are not supported")
     if not 0 < B < 1 << 16:
         raise ValueError(f"batch must be in 1..65535, got {B}")
+    if with_positions and not with_values:
+        raise ValueError("with_positions needs with_values")
+    if not 0 <= pos_vbits <= 16:
+        raise ValueError(f"pos_vbits must be in 0..16, got {pos_vbits}")
 
 
 def encode_l1_plain(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
-                    with_values: bool = True):
+                    with_values: bool = True, with_positions: bool = False, pos_vbits: int = 0):
     """Plain PyTorch version of :func:`encode_l1`, on any device."""
-    _check(frames, threshold)
+    _check(frames, threshold, with_values, with_positions, pos_vbits)
     B, H, W = frames.shape
     n = H * W
     f = _launch.u16_to_i32(frames).reshape(B, n)
@@ -53,21 +67,31 @@ def encode_l1_plain(frames: torch.Tensor, threshold: torch.Tensor, out_size: int
     if not with_values:
         return bitmap, None, counts, torch.zeros(B, dtype=torch.bool, device=frames.device)
     comp = torch.zeros((B, out_size), dtype=torch.int32, device=frames.device)
+    pos = torch.zeros_like(comp) if with_positions else None
     residual = f - t
+    if with_positions and pos_vbits:
+        residual = residual & ((1 << pos_vbits) - 1)
     for b in range(B):
         vals = residual[b][mask[b]][:out_size]
         comp[b, :vals.numel()] = vals
+        if with_positions:
+            pos[b, :vals.numel()] = torch.nonzero(mask[b]).flatten()[:out_size].to(torch.int32)
+    if with_positions:
+        return bitmap, comp, counts, counts > out_size, pos
     return bitmap, comp, counts, counts > out_size
 
 
 def encode_l1(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
-              with_values: bool = True):
-    """Returns (bitmap, comp or None, counts, overflow) as described above."""
-    _check(frames, threshold)
+              with_values: bool = True, with_positions: bool = False, pos_vbits: int = 0):
+    """Returns (bitmap, comp or None, counts, overflow[, pos]) as described above."""
+    _check(frames, threshold, with_values, with_positions, pos_vbits)
     if out_size < 0:
         raise ValueError(f"out_size must be >= 0, got {out_size}")
+    if not with_positions:
+        pos_vbits = 0
     if _launch.on_host(frames, threshold):
-        return encode_l1_plain(frames, threshold, out_size, with_values)
+        return encode_l1_plain(frames, threshold, out_size, with_values, with_positions,
+                               pos_vbits)
     B, H, W = frames.shape
     n = H * W
     dev = frames.device
@@ -76,8 +100,14 @@ def encode_l1(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
+    pos = torch.empty_like(comp) if with_positions else None
+    if with_positions:
+        POSITIONS_LAUNCHES.add()
     _launch.launch(LAUNCHES, "pr_encode_l1", dev,
                    _launch.ptr(frames), _launch.ptr(threshold), _launch.ptr(bitmap),
                    _launch.ptr(comp), _launch.ptr(counts), _launch.ptr(overflow),
-                   _launch.ptr(tiles), B, n, out_size, int(with_values))
+                   _launch.ptr(tiles), _launch.ptr(pos) if with_positions else None,
+                   pos_vbits, B, n, out_size, int(with_values))
+    if with_positions:
+        return bitmap, comp, counts, overflow, pos
     return bitmap, comp if with_values else None, counts, overflow

@@ -354,8 +354,8 @@ def test_writer_device_entropy_options(tmp_path):
 
     assert writer(_params(n=(2, 16, 16)))._device_entropy is False   # auto: off on the CPU
     assert writer(_params(n=(2, 16, 16)), device_entropy=True)._device_entropy is True
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        writer(_params(scheme=12, n=(2, 16, 16)), device_entropy=True)
+    # scheme 12 codes on the device too (its rANS kernels' twins on the CPU)
+    assert writer(_params(scheme=12, n=(2, 16, 16)), device_entropy=True)._device_entropy is True
     with pytest.raises(ValueError, match="rc_operation_mode 1"):
         writer(_params(mode=0, n=(2, 16, 16)), device_entropy=True)
     with pytest.raises(ValueError, match="compression_scheme 0"):

@@ -14,9 +14,11 @@ import pytest
 import torch
 
 import pyrecode_tpu_torch as port
-from pyrecode_tpu import InputParams, native
+from pyrecode_tpu_torch import InputParams, native
+from pyrecode_tpu_torch.codecs import rans
 from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tables
-from pyrecode_tpu_torch.ops import hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode
+from pyrecode_tpu_torch.ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode,
+                                    hopper_rans)
 
 pytestmark = pytest.mark.gpu
 
@@ -66,6 +68,80 @@ def test_encode_l1_matches_twin(cuda, shape, with_values):
     for out_size in (shape[0] * shape[1], 100):   # fits; overflows
         got = hopper_encode.encode_l1(f, t, out_size, with_values)
         _equal(got, hopper_encode.encode_l1_plain(f, t, out_size, with_values))
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+def test_encode_l1_positions_matches_twin(cuda, shape):
+    frames, thr = _frames(0.2, shape, seed=17)
+    frames[0, 0, :5] = 4095 + np.arange(5, dtype=np.uint16) * 1000   # values above 12 bits
+    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+    for out_size in (shape[0] * shape[1], 100):   # fits; overflows
+        for vbits in (0, 12):
+            got = hopper_encode.encode_l1(f, t, out_size, True, True, vbits)
+            _equal(got, hopper_encode.encode_l1_plain(f, t, out_size, True, True, vbits))
+
+
+def _symbols(seed, B, npad, m):
+    rng = np.random.default_rng(seed)
+    vals = np.minimum(rng.exponential(8.0, (B, npad)).astype(np.int32), 4095)
+    vals[-1] = rng.integers(0, 4096, npad)      # every symbol of the alphabet
+    m = np.asarray(m, np.int32)
+    hist = np.stack([np.bincount(vals[b, :m[b]], minlength=4096) for b in range(B)])
+    freq = np.stack([rans.quantize_freqs(h).astype(np.int32) for h in hist])
+    cum = np.zeros_like(freq)
+    cum[:, 1:] = np.cumsum(freq, axis=1)[:, :-1]
+    return vals, freq, cum, m
+
+
+def test_rans_hist_matches_twin(cuda):
+    vals, _, _, m = _symbols(18, 4, 50000, [50000, 1025, 0, 33333])
+    v, mm = torch.from_numpy(vals).to(cuda), torch.from_numpy(m).to(cuda)
+    _equal([hopper_rans.rans_hist(v, mm)], [hopper_rans.rans_hist_plain(v, mm)])
+
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_rans_encode_decode_match_twins(cuda, groups):
+    # m not a multiple of 1024; a one-symbol alphabet; m = 0; all 4096 symbols
+    vals, freq, cum, m = _symbols(19, 5, 70000, [70000, 1025, 5000, 0, 65537])
+    vals[2] = 7
+    freq[2] = 0
+    freq[2, 7] = 4096
+    cum[2] = 0
+    cum[2, 8:] = 4096
+    args = [torch.from_numpy(a).to(cuda) for a in (vals, freq, cum, m)]
+    out_bound = 2 * 70000 + 16
+    got = hopper_rans.rans_encode(*args, out_bound, groups)
+    _equal(got, hopper_rans.rans_encode_plain(*args, out_bound, groups))
+    body, states, counts = got
+    rev = torch.stack([torch.flip(torch.nn.functional.pad(body[b, :int(counts[b])],
+                                                          (out_bound - int(counts[b]), 0)), [0])
+                       for b in range(5)]).contiguous()
+    tables = torch.from_numpy(np.stack([hopper_rans.decode_tables(f) for f in freq])).to(cuda)
+    dec = (rev, counts, states, args[3], tables, 70000, groups)
+    syms, underflow = hopper_rans.rans_decode(*dec)
+    _equal([syms, underflow], hopper_rans.rans_decode_plain(*dec))
+    assert not bool(underflow.any())
+    for b in range(5):
+        assert torch.equal(syms[b, :m[b]].cpu(), torch.from_numpy(vals[b, :m[b]]))
+
+
+def test_posdecode_matches_twin(cuda):
+    rng = np.random.default_rng(20)
+    H, W = 96, 160
+    pos = np.zeros((3, 4000), np.int32)
+    counts = np.array([3000, 0, 4000], np.int32)
+    for b in (0, 2):
+        pos[b, :counts[b]] = np.sort(rng.choice(H * W, counts[b], replace=False))
+    vals = rng.integers(0, 4096, pos.shape).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (pos, vals, counts)]
+    got = hopper_decode.posdecode(*args, H, W)
+    _equal(got, hopper_decode.posdecode_plain(*args, H, W))
+    assert not bool(got[1].any())
+    bad = pos.copy()
+    bad[2, 10] = H * W                          # outside the frame
+    counts[0] = 4001                            # more than the width
+    args = [torch.from_numpy(a).to(cuda) for a in (bad, vals, counts)]
+    assert hopper_decode.posdecode(*args, H, W)[1].tolist() == [True, False, True]
 
 
 @pytest.mark.parametrize("shape", [(96, 160), (37, 29)])

@@ -1,11 +1,12 @@
 """The port's main path end to end on the CPU: writer -> part files ->
 merge_parts -> reader, and the server in thread mode, byte for byte
 against the JAX package (its writer with ``use_tpu=True`` runs the Pallas
-kernels in interpret mode here).
+kernels in interpret mode here), for scheme 0 and scheme 12.
 """
 
 import filecmp
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -135,6 +136,8 @@ def test_server_thread_mode_bytes_match_jax(tmp_path, jax_files):
 
 
 def test_slice_never_imports_jax(tmp_path):
+    """A scheme-0 server slice and a scheme-12 device-entropy slice on the
+    CPU import neither JAX nor any module of the JAX package."""
     script = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -143,29 +146,54 @@ def test_slice_never_imports_jax(tmp_path):
         data = np.where(rng.random((4, 32, 64)) < 0.05,
                         rng.integers(40, 4096, (4, 32, 64)), 0).astype(np.uint16)
         dark = rng.integers(0, 30, (32, 64)).astype(np.uint16)
-        params = port.InputParams(dict(
-            reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=3,
-            target_bit_depth=12, source_bit_depth=12, num_cols=64, num_rows=32, num_frames=4,
-            frame_offset=0, num_calibration_frames=1, calibration_frame_offset=0,
-            keep_part_files=0, num_threads=2, l2_statistics=0, l4_centroiding=0,
-            compression_scheme=0, compression_level=1, source_file_type=0,
-            source_header_length=0, keep_calibration_data=1, calibration_file_type=0,
-            source_data_type=0, target_data_type=0))
-        assert params.validate()
-        out = {str(tmp_path)!r}
-        init = port.InitParams("batch", out, image_filename="s", log_filename=out + "/log")
-        port.ReCoDeServer("batch", device="cpu").run(init, params, dark_data=dark, data=data)
-        reader = port.ReCoDeReader(port.merge_parts(out, "s.rc1", 2), device="cpu")
-        reader.open()
         thr = dark.astype(np.int64) + 3
-        assert np.array_equal(reader.read_frames_dense(0, 4), np.where(data > thr, data - thr, 0))
-        print("jax" in sys.modules)
+        out = {str(tmp_path)!r}
+        for scheme in (0, 12):
+            params = port.InputParams(dict(
+                reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=3,
+                target_bit_depth=12, source_bit_depth=12, num_cols=64, num_rows=32,
+                num_frames=4, frame_offset=0, num_calibration_frames=1,
+                calibration_frame_offset=0, keep_part_files=0, num_threads=2,
+                l2_statistics=0, l4_centroiding=0, compression_scheme=scheme,
+                compression_level=1, source_file_type=0, source_header_length=0,
+                keep_calibration_data=1, calibration_file_type=0, source_data_type=0,
+                target_data_type=0))
+            assert params.validate()
+            name = f"s{{scheme}}"
+            if scheme == 0:
+                init = port.InitParams("batch", out, image_filename=name,
+                                       log_filename=out + "/log")
+                port.ReCoDeServer("batch", device="cpu").run(init, params, dark_data=dark,
+                                                             data=data)
+            else:
+                for node in range(2):
+                    w = port.ReCoDeWriter(name, dark_data=dark, output_directory=out,
+                                          input_params=params, node_id=node, device="cpu",
+                                          device_entropy=True)
+                    w.start()
+                    w.run(data)
+                    w.close()
+            reader = port.ReCoDeReader(port.merge_parts(out, name + ".rc1", 2), device="cpu")
+            reader.open()
+            assert np.array_equal(reader.read_frames_dense(0, 4),
+                                  np.where(data > thr, data - thr, 0))
+        print("jax" in sys.modules,
+              any(m == "pyrecode_tpu" or m.startswith("pyrecode_tpu.") for m in sys.modules))
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          env=env, cwd=str(tmp_path), timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "False"
+    assert out.stdout.strip().splitlines()[-1] == "False False"
+
+
+def test_port_sources_never_import_the_jax_package():
+    """No file of the port, and not chip_smoke.py, imports pyrecode_tpu."""
+    pattern = re.compile(r"^\s*(from|import)\s+pyrecode_tpu(\.|\s|$)", re.M)
+    files = sorted((REPO / "pyrecode_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
 
 
 def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
@@ -182,35 +210,64 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
         port.ReCoDeReader("x", device="meta")
 
 
+def test_cuda_default_device_entropy_without_the_host_library(tmp_path, monkeypatch):
+    """device_entropy=None on CUDA keeps scheme-12 device entropy when the
+    native host library is missing (the rANS stage does not use it) and
+    raises for scheme 0, whose Huffman tables need it, instead of coding on
+    the host."""
+    monkeypatch.setattr(port.native, "available", lambda: False)
+    dark = _fixture(shape=(2, 16, 16))[1]
+
+    def cuda_writer(scheme):
+        w = port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
+                              input_params=_params(shape=(2, 16, 16), num_threads=1,
+                                                   compression_scheme=scheme),
+                              device="cpu", device_entropy=False)
+        w._device = torch.device("cuda")
+        return w
+
+    assert cuda_writer(12)._resolve_device_entropy(None) is True
+    with pytest.raises(RuntimeError, match="host library"):
+        cuda_writer(0)._resolve_device_entropy(None)
+    with pytest.raises(RuntimeError, match="host library"):
+        cuda_writer(0)._resolve_device_entropy(True)
+    assert cuda_writer(0)._resolve_device_entropy(False) is False
+
+
 def test_unported_options_raise(tmp_path):
     data, dark = _fixture(shape=(2, 16, 16))
     params = _params(shape=(2, 16, 16), num_threads=1)
+
+    def writer(**overrides):
+        return port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
+                                 input_params=_params(shape=(2, 16, 16), num_threads=1,
+                                                      **overrides),
+                                 device="cpu", device_entropy=True)
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.ReCoDeServer("batch", isolation="process", device="cpu")
-    assert port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
-                             input_params=params, device="cpu",
-                             device_entropy=True)._device_entropy is True
+    assert writer()._device_entropy is True
+    assert writer(compression_scheme=12)._device_entropy is True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
-                          input_params=_params(shape=(2, 16, 16), num_threads=1,
-                                               compression_scheme=12),
-                          device="cpu", device_entropy=True)
+        writer(compression_scheme=12, reduction_level=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        writer(compression_scheme=12, source_bit_depth=8, target_bit_depth=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
                           input_params=_params(shape=(2, 16, 16), num_threads=1,
                                                reduction_level=2), device="cpu")
-    writer = port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
-                               input_params=params, device="cpu")
-    writer.start()
+    w = port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
+                          input_params=params, device="cpu")
+    w.start()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        writer.run(data, profile_dir=str(tmp_path / "trace"))
-    writer.close()
+        w.run(data, profile_dir=str(tmp_path / "trace"))
+    w.close()
+    # scheme-12 reads run on the device path now (the twins on the CPU)
     merged = _write(JaxWriter, tmp_path / "s12", data, dark,
                     _params(shape=(2, 16, 16), num_threads=1, compression_scheme=12),
                     use_tpu=False)
     reader = port.ReCoDeReader(merged, device="cpu")
     reader.open()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reader.read_frames_dense(0, 2)
+    assert np.array_equal(reader.read_frames_dense(0, 2), _residuals(data, dark))
     assert np.array_equal(reader.read_frames_dense(0, 2, use_tpu=False), _residuals(data, dark))
     reader.close()
