@@ -29,7 +29,18 @@ Phases (each raises on failure; nothing is caught):
    (interleaved rANS on the card) -> merge_parts -> read_frames_dense
    through the gap chain and with verify=True, bit-exact; every stream of
    the merged file decoded by the host rans.decompress; for one batch the
-   device coders on CUDA tensors equal the same coders on CPU tensors.
+   device coders on CUDA tensors equal the same coders on CPU tensors;
+7. the L2/L3/L4 slices: the same server run on 16 frames of electron
+   puddles (make_puddle_frames) at L2 sum / scheme 12, L4 weighted_average
+   / scheme 0 and L3 / scheme 12 -> merge_parts -> read_frames_dense,
+   bit-exact against the plain version's bitmaps on every frame and against
+   oracle.reduce_frame on two; L2 summary_stats of get_frame equal to the
+   oracle's; every scheme-12 stream decoded by the host rans.decompress;
+   one L4 part file written with device and with host entropy, byte-equal.
+
+Phase 3 also holds the label kernel (all five L2/L4 modes) and the bitmap
+-> positions kernel against their twins on a batch of puddle frames, its
+bitmaps and statistics streams, and an edge battery.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -53,7 +64,8 @@ from pyrecode_tpu_torch.codecs import dyndeflate, rans
 from pyrecode_tpu_torch.codecs.dyndeflate import quantize_bound
 from pyrecode_tpu_torch.constants import rc_cfg as rc
 from pyrecode_tpu_torch.ops import (_build, _launch, hopper_bitpack, hopper_decode, hopper_deflate,
-                                    hopper_encode, hopper_rans)
+                                    hopper_encode, hopper_gaps, hopper_label, hopper_rans)
+from pyrecode_tpu_torch.ops.bitpack import bitpack_values, unpack_bits
 from pyrecode_tpu_torch.ops.encode import encode_frames_auto
 from pyrecode_tpu_torch.writer import _bucket_for
 
@@ -78,6 +90,9 @@ KERNELS = {
     "rans_decode": ("pyrecode_tpu_torch/csrc/rans_decode.cu",
                     "pyrecode_tpu/ops/pallas_rans.py:674"),
     "posdecode": ("pyrecode_tpu_torch/csrc/posdecode.cu", "pyrecode_tpu/ops/pallas_decode.py:457"),
+    "label_l2l4": ("pyrecode_tpu_torch/csrc/label_l2l4.cu", "pyrecode_tpu/ops/pallas_label.py:459"),
+    "bitmap_positions": ("pyrecode_tpu_torch/csrc/bitmap_positions.cu",
+                         "pyrecode_tpu/ops/pallas_gaps.py:119"),
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
 # the kernels each slice's main path must launch
@@ -85,6 +100,13 @@ SCHEME0_KERNELS = ("encode_l1", "bitpack12", "tokenize", "tokenize_compact", "as
                    "bitunpack12", "decode_l1")
 SCHEME12_KERNELS = ("encode_l1", "encode_l1_positions", "bitpack12", "rans_hist", "rans_encode",
                     "bitunpack12", "rans_decode", "posdecode", "decode_l1")
+# (level, L2 statistic or L4 scheme, compression scheme) -> the kernels of that slice
+LEVEL_SLICES = {
+    (2, "sum", 12): ("label_l2l4", "bitpack12", "bitmap_positions", "rans_hist", "rans_encode",
+                     "rans_decode"),
+    (4, "weighted_average", 0): ("label_l2l4", "tokenize", "assemble"),
+    (3, None, 12): ("encode_l1", "bitmap_positions", "rans_hist", "rans_encode", "rans_decode"),
+}
 
 
 def card() -> str:
@@ -107,6 +129,103 @@ def make_frames(rng, n: int, height: int, width: int, occupancy: float = OCCUPAN
         frame[fg] = np.minimum(vals, 4095)
         frames[i] = frame
     return frames, dark
+
+
+def make_puddle_frames(rng, n: int, height: int, width: int, hits: int = 40000):
+    """Dark frame in 0..31 and frames of electron puddles: ``hits`` a
+    4096^2 frame (scaled to the frame's area), each its centre pixel plus
+    each of its eight neighbours with p = 0.3, so puddles of 1-9 pixels that
+    sometimes merge (~1% foreground), whose raw values lie above dark +
+    EPSILON with peaked excess; the rest stays at or below it.  Returns
+    (frames (n, h, w) u16, dark (h, w) u16)."""
+    dark = rng.integers(0, 32, (height, width), dtype=np.uint16)
+    thr = dark + EPSILON
+    k = max(1, round(hits * height * width / 4096 ** 2))
+    frames = np.empty((n, height, width), dtype=np.uint16)
+    for i in range(n):
+        frame = dark + rng.integers(0, EPSILON + 1, (height, width), dtype=np.uint16)
+        r, c = rng.integers(0, height, k), rng.integers(0, width, k)
+        fg = np.zeros((height, width), dtype=bool)
+        for dr in (-1, 0, 1):
+            for dc in (-1, 0, 1):
+                keep = rng.random(k) < (1.0 if dr == dc == 0 else 0.3)
+                rr, cc = r[keep] + dr, c[keep] + dc
+                ok = (rr >= 0) & (rr < height) & (cc >= 0) & (cc < width)
+                fg[rr[ok], cc[ok]] = True
+        vals = thr[fg].astype(np.int64) + 1 + rng.exponential(40.0, int(fg.sum())).astype(np.int64)
+        frame[fg] = np.minimum(vals, 4095)
+        frames[i] = frame
+    return frames, dark
+
+
+def _spiral(height: int, width: int) -> np.ndarray:
+    """A one-pixel square spiral with one-pixel gaps between its turns: one
+    puddle whose geodesic length is about half the frame's pixels."""
+    out = np.zeros((height, width), dtype=bool)
+    r = c = d = 0
+    steps = ((0, 1), (1, 0), (0, -1), (-1, 0))
+
+    def free(y, x):
+        return 0 <= y < height and 0 <= x < width and not out[y, x]
+
+    out[0, 0] = True
+    while True:
+        for turn in range(2):
+            dr, dc = steps[(d + turn) % 4]
+            y, x = r + dr, c + dc
+            if free(y, x) and (not (0 <= y + dr < height and 0 <= x + dc < width)
+                               or not out[y + dr, x + dc]):
+                d = (d + turn) % 4
+                r, c = y, x
+                out[r, c] = True
+                break
+        else:
+            return out
+
+
+def label_edge_frames(rng, height: int, width: int) -> dict:
+    """The label kernel's edge battery on a zero threshold, name -> (h, w)
+    u16 frame (0 = background): an empty frame; a fully foreground one (one
+    puddle, L2 sums saturate), with random and with equal values (L4 max
+    takes the first pixel); a 24-row-tall puddle and a 12-pixel line, which
+    overflow the TPU kernel's halo; a U whose arms join only at the bottom
+    and a comb of them; puddles on every frame edge, including pixels at the
+    end of one row and the start of the next (adjacent indices, not
+    neighbours); a stride-2 grid (the most puddles 8-connectivity allows); a
+    checkerboard (one puddle through diagonals); blobs of tied values; and,
+    at 256^2 and below, a spiral."""
+    H, W = height, width
+    vals = rng.integers(1, 4096, (H, W)).astype(np.uint16)
+    frames = {"empty": np.zeros((H, W), np.uint16), "full foreground": vals.copy(),
+              "full, equal values": np.full((H, W), 7, np.uint16)}
+    shapes = np.zeros((H, W), bool)
+    shapes[2:26, W // 2] = True                           # 24 rows tall
+    shapes[H - 3, 5:17] = True                            # a 12-pixel line
+    shapes[5:25, 3] = shapes[5:25, 9] = shapes[24, 3:10] = True   # U, joined at the bottom
+    shapes[30:40, 20:41:2] = True                         # a comb joined at the bottom
+    shapes[39, 20:41] = True
+    frames["tall, line, U, comb"] = np.where(shapes, vals, 0).astype(np.uint16)
+    edges = np.zeros((H, W), bool)
+    edges[0, ::3] = edges[-1, 1::3] = True
+    edges[::6, 0] = edges[::6, -1] = True
+    edges[[0, 0, -1, -1], [0, -1, 0, -1]] = True          # the corners
+    edges[2::6, -1] = edges[3::6, 0] = True               # a row's end, the next row's start
+    edges[1::6, 1] = edges[4::6, -2] = True               # diagonal neighbours of edge pixels
+    frames["edges"] = np.where(edges, vals, 0).astype(np.uint16)
+    grid = np.zeros((H, W), bool)
+    grid[::2, ::2] = True
+    frames["stride-2 grid"] = np.where(grid, vals, 0).astype(np.uint16)
+    board = (np.arange(H)[:, None] + np.arange(W)[None, :]) % 2 == 0
+    frames["checkerboard"] = np.where(board, vals, 0).astype(np.uint16)
+    blobs = np.zeros((H, W), bool)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for _ in range(12):
+        cy, cx, rad = rng.integers(0, H), rng.integers(0, W), rng.integers(1, 11)
+        blobs |= (yy - cy) ** 2 + (xx - cx) ** 2 <= rad * rad
+    frames["tied blobs"] = np.where(blobs, rng.integers(1, 4, (H, W)), 0).astype(np.uint16)
+    if H * W <= 256 * 256:
+        frames["spiral"] = np.where(_spiral(H, W), vals, 0).astype(np.uint16)
+    return frames
 
 
 def expect(condition, message) -> None:
@@ -433,6 +552,106 @@ def check_rans(device, rng, check, frames, thr, out_size, packed):
     return timed
 
 
+def label_batteries(device, rng, height: int, width: int):
+    """The label kernel's inputs beyond the puddle batch: (what, frames,
+    threshold, out_size) of the edge battery at the slice's shape, a spiral
+    and the battery at 256^2 (the twin's rounds stay few there), and puddle
+    frames of 37x29 and of a width not a multiple of 128."""
+    cases = []
+    for h, w in {(height, width), (min(height, 256), min(width, 256))}:
+        edge = label_edge_frames(rng, h, w)
+        cases.append((f"edge battery {h}x{w} ({len(edge)} frames)",
+                      torch.from_numpy(np.stack(list(edge.values()))).to(device),
+                      torch.zeros((h, w), dtype=torch.uint16, device=device), h * w))
+    for h, w in ((37, 29), (min(height, 96), 1000)):
+        f, d = make_puddle_frames(rng, 3, h, w, hits=40000 * 16)
+        cases.append((f"{h}x{w} puddle frames", torch.from_numpy(f).to(device),
+                      torch.from_numpy(d + EPSILON).to(device), h * w))
+    return cases
+
+
+def check_label(device, rng, check, n_frames: int, height: int, width: int):
+    """Phase 3, L2/L4: the label kernel in all five modes against its twin
+    on a batch of puddle frames (with an out_size that fits and one that
+    overflows) and the edge batteries, frame 0 of the batch against
+    oracle.reduce_frame; then the bitmap -> positions kernel on the batch's
+    bitmaps and L2 statistics streams and on edge streams.  Returns timing
+    entries of both kernels at the main path's inputs (L2 sum, and the L3
+    bitmaps at the writer's positions capacity)."""
+    frames_np, dark = make_puddle_frames(rng, n_frames, height, width)
+    thr_np = dark + EPSILON
+    frames, thr = torch.from_numpy(frames_np).to(device), torch.from_numpy(thr_np).to(device)
+    fg = hopper_encode.encode_l1_plain(frames, thr, 0, with_values=False)[2]
+    out_size = _bucket_for(int(fg.max()), height * width)
+    print(f"puddle batch: frames {tuple(frames.shape)}, foreground counts {fg.tolist()}, "
+          f"puddle buffer {out_size}")
+    cases = [("puddle batch", frames, thr, out_size)] + label_batteries(device, rng, height, width)
+    outs = {}
+    for mode in hopper_label.MODES:
+        for what, f, t, size in cases:
+            got = hopper_label.encode_l2l4(f, t, mode, size, 4095)
+            check("label_l2l4", got, hopper_label.encode_l2l4_plain(f, t, mode, size, 4095),
+                  f"{mode}, {what}")
+            expect(not bool(got[3].any()), f"label_l2l4 {mode}: unexpected overflow on {what}")
+            if what == "puddle batch":
+                outs[mode] = got
+        small = int(outs[mode][2].min()) // 2
+        got = hopper_label.encode_l2l4(frames, thr, mode, small, 4095)
+        check("label_l2l4", got, hopper_label.encode_l2l4_plain(frames, thr, mode, small, 4095),
+              f"{mode}, out_size < count")
+        expect(bool(got[3].all()), "label_l2l4: overflow must be set when out_size < count")
+        level, name = hopper_label.CONFIG_BY_MODE[mode]
+        enc = oracle.reduce_frame(frames_np[0], thr_np, level, 12, l2_statistic=name,
+                                  l4_scheme=name)
+        bitmap, stats, counts, _ = outs[mode]
+        expect(bitmap[0].cpu().numpy().tobytes() == enc["packed_binary_map"],
+               f"label_l2l4 {mode}: frame 0 bitmap differs from oracle.reduce_frame")
+        if level == 2:
+            n = int(counts[0])
+            expect(oracle.bit_pack(stats[0, :n].cpu().numpy(), 12).tobytes()
+                   == enc["packed_pixvals"],
+                   f"label_l2l4 {mode}: frame 0 statistics differ from oracle.reduce_frame")
+    print(f"  label_l2l4       frame 0 of the puddle batch equals oracle.reduce_frame in all "
+          f"five modes; puddles {outs['l2sum'][2].tolist()}")
+
+    # bitmap -> positions on the streams the slices code in gap mode
+    l2_bitmap, l2_stats, l2_counts, _ = outs["l2sum"]
+    packed = bitpack_values(l2_stats, 12)
+    streams = [("L2/L3 bitmaps", l2_bitmap), ("L4 bitmaps", outs["l4w"][0]),
+               ("L2 sum statistics", packed),
+               ("no set bits", torch.zeros((2, 8192), dtype=torch.uint8, device=device)),
+               ("all bits set", torch.full((2, 5000), 255, dtype=torch.uint8, device=device)),
+               ("NB = 12345", torch.from_numpy(
+                   (rng.integers(0, 256, (3, 12345)) * (rng.random((3, 12345)) < 0.3))
+                   .astype(np.uint8)).to(device))]
+    for what, bm in streams:
+        bound = 2 * -(-bm.shape[1] // 16384) * 16384   # the writer's capacity
+        for size in (bound, 100):
+            got = hopper_gaps.bitmap_positions(bm, size)
+            check("bitmap_positions", got, hopper_gaps.bitmap_positions_plain(bm, size),
+                  f"{what}, out_size {size}")
+        n_set = int(unpack_bits(bm).sum(dim=1).max())
+        expect(bool(hopper_gaps.bitmap_positions(bm, bound)[2].any()) == (n_set > bound),
+               f"bitmap_positions overflow flag on {what}")
+    print("  bitmap_positions overflow flags follow the set-bit counts")
+
+    # no PyTorch call labels puddles or lists a bitmap's set bits
+    got = outs["l2sum"]
+    pos_bound = 2 * -(-l2_bitmap.shape[1] // 16384) * 16384
+    positions = hopper_gaps.bitmap_positions(l2_bitmap, pos_bound)
+    timed = {
+        "label_l2l4": (lambda: hopper_label.encode_l2l4(frames, thr, "l2sum", out_size, 4095),
+                       lambda: hopper_label.encode_l2l4_plain(frames, thr, "l2sum", out_size, 4095),
+                       io_bytes(frames, thr, got), None),
+        "bitmap_positions": (lambda: hopper_gaps.bitmap_positions(l2_bitmap, pos_bound),
+                             lambda: hopper_gaps.bitmap_positions_plain(l2_bitmap, pos_bound),
+                             io_bytes(l2_bitmap, positions), None),
+    }
+    modes = {mode: (lambda m=mode: hopper_label.encode_l2l4(frames, thr, m, out_size, 4095))
+             for mode in hopper_label.MODES}
+    return timed, modes
+
+
 def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, plain_reps=3):
     """Phase 3: every kernel against its twin (exactly) on edge cases and at
     the slice's shapes; returns {name: {max_abs_err, ms, plain_ms}}."""
@@ -529,6 +748,7 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     plens = (counts_dev * 12 + 7) // 8
     deflate_timed = check_deflate(device, rng, check, bitmap, packed, plens)
     rans_timed = check_rans(device, rng, check, frames, thr, out_size, packed)
+    label_timed, label_modes = check_label(device, rng, check, n_frames, height, width)
 
     if device.type != "cuda":
         return {name: {"max_abs_err": e} for name, e in err.items()}
@@ -578,17 +798,32 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
         for name, entry in rans_timed[what].items():
             out[name] = measure(entry, err[name], reps, plain_reps)
             report(name, what)
+    # L2 sum and the L2/L3 bitmaps of the puddle batch; the other modes' times beside
+    for name, entry in label_timed.items():
+        out[name] = measure(entry, err[name], reps, plain_reps)
+        report(name, "puddle frames" if name == "label_l2l4" else "bitmaps")
+    out["label_l2l4"]["mode_ms"] = {m: cuda_ms(fn, reps) for m, fn in label_modes.items()}
+    print(f"  label_l2l4       kernel ms by mode: {out['label_l2l4']['mode_ms']}")
     return out
 
 
-def slice_params(n_frames: int, height: int, width: int, num_threads: int, scheme: int = 0):
-    """L1, mode 1, 12-bit parameters of the slice, at compression scheme 0 or 12."""
+L2_STATISTICS = {"max": 1, "sum": 2}
+L4_CENTROIDING = {"weighted_average": 1, "max": 2, "unweighted": 3}
+
+
+def slice_params(n_frames: int, height: int, width: int, num_threads: int, scheme: int = 0,
+                 level: int = 1, statistic=None):
+    """Mode 1, 12-bit parameters of a slice at compression scheme 0 or 12 and
+    reduction ``level`` (L1 by default), with ``statistic`` the L2 summary
+    statistic or the L4 centroiding scheme."""
     params = port.InputParams(dict(
-        reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=EPSILON,
+        reduction_level=level, rc_operation_mode=1, calibration_threshold_epsilon=EPSILON,
         target_bit_depth=12, source_bit_depth=12, num_cols=width, num_rows=height,
         num_frames=n_frames, frame_offset=0, num_calibration_frames=1,
         calibration_frame_offset=0, keep_part_files=1, num_threads=num_threads,
-        l2_statistics=0, l4_centroiding=0, compression_scheme=scheme, compression_level=1,
+        l2_statistics=L2_STATISTICS.get(statistic, 0) if level == 2 else 0,
+        l4_centroiding=L4_CENTROIDING.get(statistic, 0) if level == 4 else 0,
+        compression_scheme=scheme, compression_level=1,
         source_file_type=0, source_header_length=0, keep_calibration_data=1,
         calibration_file_type=0, source_data_type=0, target_data_type=0))
     if not params.validate():
@@ -705,16 +940,17 @@ def check_scheme12_streams(device, data, dark, merged, batch=4):
           "tensors")
 
 
-def compare_entropy_paths(device, data, dark, work_dir: Path):
-    """Phase 5: one node writes all of ``data`` into a part file with device
-    entropy and with host entropy, in the order device, host, host, device;
-    every part file must equal the first byte for byte.  Returns the write
-    seconds (writer start to close) of each path."""
-    params = slice_params(*data.shape, num_threads=1)
+def compare_entropy_paths(device, data, dark, work_dir: Path, level: int = 1, statistic=None):
+    """Phase 5 (and phase 7 at L4): one node writes all of ``data`` into a
+    part file with device entropy and with host entropy, in the order
+    device, host, host, device; every part file must equal the first byte
+    for byte.  Returns the write seconds (writer start to close) of each
+    path."""
+    params = slice_params(*data.shape, num_threads=1, level=level, statistic=statistic)
     first = None
     seconds = {True: [], False: []}
     for k, device_entropy in enumerate((True, False, False, True)):
-        out = work_dir / f"entropy_{k}"
+        out = work_dir / f"entropy_L{level}_{k}"
         out.mkdir()
         t0 = time.perf_counter()
         writer = port.ReCoDeWriter("smoke", dark_data=dark, output_directory=str(out),
@@ -725,13 +961,113 @@ def compare_entropy_paths(device, data, dark, work_dir: Path):
         writer.run(data)
         writer.close()
         seconds[device_entropy].append(time.perf_counter() - t0)
-        part = (out / "smoke.rc1_part000").read_bytes()
+        part = (out / f"smoke.rc{level}_part000").read_bytes()
         first = part if first is None else first
         expect(part == first, f"part file {k} (device_entropy={device_entropy}) differs from "
                               "the device-entropy one")
-    print(f"entropy paths: {data.shape[0]} frames {data.shape[1]}x{data.shape[2]}, one node; "
-          f"device- and host-entropy part files byte-equal ({len(first)} bytes)")
+    print(f"entropy paths, L{level}: {data.shape[0]} frames {data.shape[1]}x{data.shape[2]}, "
+          f"one node; device- and host-entropy part files byte-equal ({len(first)} bytes)")
     return seconds
+
+
+def plain_level_streams(device, data, dark, level: int, statistic, batch: int = 4):
+    """The plain versions' bitmaps (n, ceil(h*w/8)) and, at L2, the packed
+    statistics stream of each frame, batch by batch as the writer sizes it."""
+    n, height, width = data.shape
+    thr = torch.from_numpy((dark + EPSILON).astype(np.uint16)).to(device)
+    bitmaps, stats = [], []
+    for start in range(0, n, batch):
+        frames = torch.from_numpy(data[start:start + batch]).to(device)
+        if level == 3:
+            bitmaps.append(hopper_encode.encode_l1_plain(frames, thr, 0, with_values=False)[0])
+            continue
+        fg = hopper_encode.encode_l1_plain(frames, thr, 0, with_values=False)[2]
+        mode = hopper_label.MODE_BY_CONFIG[(level, statistic)]
+        bm, st, counts, _ = hopper_label.encode_l2l4_plain(
+            frames, thr, mode, _bucket_for(int(fg.max()), height * width), 4095)
+        bitmaps.append(bm)
+        if st is not None:
+            packed = bitpack_values(st, 12).cpu().numpy()
+            for i, c in enumerate(counts.tolist()):
+                stats.append(packed[i, :(c * 12 + 7) // 8].tobytes())
+    return torch.cat(bitmaps).cpu().numpy(), stats
+
+
+def run_level_slice(device, data, dark, work_dir: Path, level: int, statistic, scheme: int,
+                    num_threads: int = 2):
+    """Phase 7: server -> part files -> merge -> reader at reduction ``level``
+    2, 3 or 4; read_frames_dense bit-exact against the plain version's
+    bitmaps on every frame and against oracle.reduce_frame on two; at L2 the
+    summary_stats of get_frame equal the oracle's on those two; at scheme 12
+    every stream of the merged file decodes through the host
+    rans.decompress to its raw stream.  Returns (launch counts of the
+    server run and the dense read, write s, read s)."""
+    n_frames, height, width = data.shape
+    tag = f"L{level} {statistic or ''} scheme {scheme}".replace("  ", " ")
+    init_params = port.InitParams("batch", str(work_dir), image_filename="smoke",
+                                  log_filename=str(work_dir / "recode.log"),
+                                  run_name="chip_smoke", verbosity=0)
+    server = port.ReCoDeServer("batch", device=device)
+    port.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    metrics = server.run(init_params, slice_params(n_frames, height, width, num_threads, scheme,
+                                                   level, statistic),
+                         dark_data=dark, data=data)
+    merged = port.merge_parts(str(work_dir), f"smoke.rc{level}", num_threads)
+    write_s = time.perf_counter() - t0
+    statuses = [node.status for node in server._nodes]
+    if statuses != [rc.STATUS_CODE_IS_CLOSED] * num_threads or \
+            sum(m.get("run_frames", 0) for m in metrics.values()) != n_frames:
+        print((work_dir / "recode.log").read_text())
+        raise RuntimeError(f"{tag}: server run failed: statuses {statuses}")
+    reader = port.ReCoDeReader(merged, device=device)
+    reader.open()
+    t0 = time.perf_counter()
+    dense = reader.read_frames_dense(0, n_frames)
+    read_s = time.perf_counter() - t0
+    launches = port.kernel_launch_counts()
+
+    bitmaps, stats = plain_level_streams(device, data, dark, level, statistic)
+    expected = unpack_bits(torch.from_numpy(bitmaps))[:, :height * width].numpy()
+    expect(np.array_equal(dense, expected.reshape(n_frames, height, width)),
+           f"{tag}: read_frames_dense differs from the plain version's bitmaps")
+    thr_np = dark + EPSILON
+    for z in (0, n_frames - 1):
+        enc = oracle.reduce_frame(data[z], thr_np, level, 12, l2_statistic=statistic or "max",
+                                  l4_scheme=statistic or "weighted_average")
+        expect(bitmaps[z].tobytes() == enc["packed_binary_map"],
+               f"{tag}: frame {z} bitmap differs from oracle.reduce_frame")
+        if level == 2:
+            labels, num = oracle.label_components(data[z] > thr_np)
+            want = np.minimum(oracle.l2_summary_stats(labels, data[z], num, statistic), 4095)
+            got = reader.get_frame(z)[z]["summary_stats"]
+            expect(np.array_equal(got, want),
+                   f"{tag}: frame {z} summary_stats differ from the oracle")
+            expect(stats[z] == enc["packed_pixvals"], f"{tag}: frame {z} statistics stream differs")
+    reader.close()
+    kinds = {}
+    if scheme == 12:
+        reader = port.ReCoDeReader(merged, device=device)
+        reader.open()
+        for z in range(n_frames):
+            rec = reader.get_next_frame_raw()[z]["data"]
+            raws = [(rec["binary_map"], bitmaps[z].tobytes())]
+            if level == 2:
+                raws.append((rec["pixvals"], stats[z]))
+            for stream, raw in raws:
+                h = rans._parse_header(stream)
+                kind = "stored" if "stored" in h else \
+                    f"{'gap' if h.get('gap') else 'byte' if 'sym_bits' not in h else 'symbol'}" \
+                    f"/{h['nways']} lanes"
+                kinds[kind] = kinds.get(kind, 0) + 1
+                expect(rans.decompress(stream) == raw,
+                       f"{tag}: frame {z}: a stream does not decode to its raw bytes")
+        reader.close()
+    print(f"slice, {tag}: {n_frames} frames {height}x{width}, {num_threads} nodes, merged "
+          f"{Path(merged).stat().st_size} bytes; read_frames_dense bit-exact against the plain "
+          f"version, frames 0 and {n_frames - 1} against the oracle"
+          + (f"; host rans.decompress of every stream exact ({kinds})" if kinds else ""))
+    return launches, write_s, read_s
 
 
 def main() -> None:
@@ -771,28 +1107,44 @@ def main() -> None:
                 entropy_s = compare_entropy_paths(device, data, dark, work_dir)
             else:
                 check_scheme12_streams(device, data, dark, merged)
+
+        puddles, pdark = make_puddle_frames(rng, 16, 4096, 4096)
+        for (level, statistic, scheme), kernels in LEVEL_SLICES.items():
+            path = f"L{level}{'_' + statistic if statistic else ''}_s{scheme}"
+            (work_dir / path).mkdir()
+            counts, write_s, read_s = run_level_slice(device, puddles, pdark, work_dir / path,
+                                                      level, statistic, scheme)
+            launches[path], walls[path] = counts, (write_s, read_s)
+            print(f"launches in the {path} slice: {counts}")
+            missing = [name for name in kernels if counts[name] == 0]
+            if missing:
+                raise AssertionError(f"kernels not launched by the {path} path: {missing}")
+            if level == 4:
+                entropy_l4 = compare_entropy_paths(device, puddles, pdark, work_dir, level,
+                                                   statistic)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     raw = data.nbytes
-    for scheme, (write_s, read_s) in walls.items():
-        print(f"scheme {scheme} write (server + merge, device entropy): {write_s:.3f} s, "
+    for path, (write_s, read_s) in walls.items():
+        what = f"scheme {path}" if path in (0, 12) else path
+        print(f"{what} write (server + merge, device entropy): {write_s:.3f} s, "
               f"{raw / write_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
-        print(f"scheme {scheme} read (read_frames_dense): {read_s:.3f} s, "
+        print(f"{what} read (read_frames_dense): {read_s:.3f} s, "
               f"{raw / read_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
-    for device_entropy, name in ((True, "device"), (False, "host")):
-        runs = ", ".join(f"{t:.3f}" for t in entropy_s[device_entropy])
-        print(f"write (one writer, scheme 0, {name} entropy): {runs} s [{gpu}]")
+    for what, seconds in (("L1 scheme 0", entropy_s), ("L4 weighted_average scheme 0",
+                                                       entropy_l4)):
+        for device_entropy, name in ((True, "device"), (False, "host")):
+            runs = ", ".join(f"{t:.3f}" for t in seconds[device_entropy])
+            print(f"write (one writer, {what}, {name} entropy): {runs} s [{gpu}]")
 
     kernels = []
     for name in KERNELS:
+        by_path = {(f"scheme{p}" if p in (0, 12) else p): launches[p][name] for p in launches}
         row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
-               "replaces": KERNELS[name][1],
-               "launches": launches[0][name] + launches[12][name],
-               "launches_by_path": {"scheme0": launches[0][name], "scheme12": launches[12][name]},
-               **kernel_stats[name]}
+               "replaces": KERNELS[name][1], "launches": sum(by_path.values()),
+               "launches_by_path": by_path, **kernel_stats[name]}
         if name == "encode_l1":
-            row["positions_launches"] = (launches[0]["encode_l1_positions"]
-                                         + launches[12]["encode_l1_positions"])
+            row["positions_launches"] = sum(c["encode_l1_positions"] for c in launches.values())
         kernels.append(row)
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -5,12 +5,14 @@ A port of :mod:`pyrecode_tpu` (JAX on a TPU), slice by slice, through
     ReCoDeServer('batch') -> ReCoDeWriter part files -> merge_parts
     -> ReCoDeReader.read_frames_dense
 
-at L1 reduction, ``rc_operation_mode=1`` and 12-bit values, with
-compression scheme 0 (dynamic deflate) or 12 (interleaved rANS).
-Hand-written CUDA kernels for ``sm_90a`` (``csrc/``) carry the device work:
-the fused L1 encode (with the values' pixel positions for scheme 12), the
-12-bit pack and unpack, the deflate tokenizer and bit assembler, the rANS
-histogram, encode and decode, the L1 decode and the positions decode.
+at reduction levels L1-L4, ``rc_operation_mode=1``, with compression
+scheme 0 (dynamic deflate) or 12 (interleaved rANS).  Hand-written CUDA
+kernels for ``sm_90a`` (``csrc/``) carry the device work: the fused L1/L3
+encode (with the values' pixel positions for scheme 12), the fused L2/L4
+label encode (puddle statistics, centroids), the 12-bit pack and unpack,
+the deflate tokenizer and bit assembler, the bitmap -> positions extraction,
+the rANS histogram, encode and decode, the L1 decode and the positions
+decode.
 
 The package is self-contained: it imports ``torch`` and never ``jax``, and
 nothing of :mod:`pyrecode_tpu`.  Headers, parameters, container layout,
@@ -23,7 +25,8 @@ each kernel's plain PyTorch twin).  On CUDA the writer entropy-codes on the
 device by default (``device_entropy``), as the JAX writer does on a TPU.
 """
 
-from .ops import hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode, hopper_rans
+from .ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode, hopper_gaps,
+                  hopper_label, hopper_rans)
 from .params import InitParams, InputParams
 from .reader import ReCoDeReader, merge_parts
 from .server import ReCoDeServer
@@ -43,7 +46,9 @@ __all__ = [
 _COUNTERS = {
     "encode_l1": hopper_encode.LAUNCHES,
     "encode_l1_positions": hopper_encode.POSITIONS_LAUNCHES,
+    "label_l2l4": hopper_label.LAUNCHES,
     "bitpack12": hopper_bitpack.PACK_LAUNCHES,
+    "bitmap_positions": hopper_gaps.LAUNCHES,
     "tokenize": hopper_deflate.TOKENIZE_LAUNCHES,
     "tokenize_compact": hopper_deflate.TOKENIZE_COMPACT_LAUNCHES,
     "assemble": hopper_deflate.ASSEMBLE_LAUNCHES,

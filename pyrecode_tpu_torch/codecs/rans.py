@@ -5,7 +5,7 @@ host coders, header build and parse, frequency quantization, the gap
 transform, ``decompress``), and the port of its device half on torch
 tensors: the symbol- and gap-mode batch encoders, the batch decoders and
 the dense read chains, through the port's kernels (``ops/hopper_rans.py``,
-``ops/hopper_decode.py``, ``ops/hopper_encode.py``).  Every stream the
+``ops/hopper_gaps.py``, ``ops/hopper_decode.py``, ``ops/hopper_encode.py``).  Every stream the
 device half writes is byte-identical to the JAX package's device coder on
 the same input: the same fixed lane counts (1024, or 8192 when every
 device-coded stream of a call has at least 2^21 symbols), the host coder
@@ -77,7 +77,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..ops import hopper_decode, hopper_rans
+from ..ops import hopper_decode, hopper_gaps, hopper_rans
 from ..ops.bitpack import bitunpack_values_device, packed_group_shape
 from .dyndeflate import LEN_BASE, LEN_EXTRA, NO_TOKEN, tokenize_bytes_np
 
@@ -653,9 +653,8 @@ def _symbols_to_bytes(syms: np.ndarray, h: dict) -> bytes:
 # The device half on torch tensors (CUDA: the port's kernels; CPU: their
 # twins).  Against the JAX version: no ``interpret``, no TPU capacity
 # buckets or geometry guards, one body buffer sized from the symbol counts,
-# adler32 from exact int64 reductions, and the bitmap -> positions front end
-# (kernel #12) not ported: the gap coder takes the encode kernel's fused
-# positions.
+# adler32 from exact int64 reductions, and one capacity for the bitmap ->
+# positions kernel (#12) where the JAX coder climbs its capacity buckets.
 
 W_LANES = 1024                  # lanes of one group (format log2_nways = 10)
 ROWS_R = 8                      # groups of a call whose streams are all long
@@ -774,22 +773,28 @@ def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
                            pos_counts=None) -> list:
     """Scheme-12 GAP-mode (flags 2|4) encode of a bitmap batch.
 
-    ``bitmaps`` (B, NB) uint8 LSB-first bitmaps, ``blens`` (B,) true byte
-    lengths; ``positions`` (B, P) int32 ascending set-bit positions and
-    ``pos_counts`` (B,) int32 their counts, as the L1 encode kernel's
-    positions output gives them.  First-order gaps, histogram and
-    interleaved-rANS coding run where the tensors lie.  A frame with a run
+    ``bitmaps`` (B, NB) uint8 LSB-first bitmaps, zero past ``blens`` (B,),
+    their true byte lengths.  ``positions`` (B, P) int32 ascending set-bit
+    positions and ``pos_counts`` (B,) int32 their counts, as the L1 encode
+    kernel's positions output gives them; without them the bitmap ->
+    positions kernel (:func:`hopper_gaps.bitmap_positions`) extracts them
+    with the JAX coder's capacity, 2 * NB (one set bit in four) rounded up to
+    8192; if any frame holds more set bits, the whole batch takes the host
+    coder, as the JAX coder does when its capacity buckets run out.
+    First-order gaps, histogram and interleaved-rANS coding run where the
+    tensors lie.  A frame with a run
     of 4095 or more clear bits (escape symbols), with fewer than 65536 set
     bits, or with more set bits than bitmap bytes takes the host coder.
     Returns B scheme-12 streams.
     """
-    if positions is None:
-        raise NotImplementedError(
-            "gap coding without positions needs the bitmap -> positions kernel "
-            "(pallas_gaps.bitmap_positions_pallas, #12), not ported yet "
-            "(ROADMAP Queue 2)")
     B = bitmaps.shape[0]
     blens = np.asarray(blens, np.int64)
+    raw = _raw_reader(bitmaps, blens, raw_cb)
+    if positions is None:
+        out_bound = -(-2 * bitmaps.shape[1] // (ROWS_R * W_LANES)) * ROWS_R * W_LANES
+        positions, pos_counts, overflow = hopper_gaps.bitmap_positions(bitmaps, out_bound)
+        if bool(overflow.any()):
+            return [compress_gaps(raw(i)) for i in range(B)]
     pos = positions.to(torch.int32)
     cnt = pos_counts.to(torch.int32)
     valid = torch.arange(pos.shape[1], device=pos.device)[None, :] < cnt[:, None]
@@ -799,7 +804,6 @@ def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
     ms = cnt.cpu().numpy().astype(np.int64)
     escape = ((syms >= GAP_ESCAPE) & valid).any(dim=1).cpu().numpy()
     coded = ~escape & (ms >= DEVICE_MIN_SYMBOLS) & (ms <= blens)
-    raw = _raw_reader(bitmaps, blens, raw_cb)
     if coded.any():
         syms = syms.clamp(max=GAP_ESCAPE - 1).contiguous()
         freqs, nways, bodies, counts, states = _code_streams(syms, ms, coded, 1 << GAP_BITS)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call into one shared
-library with a plain C interface, for Hopper (``sm_90a``), and loaded with
-``ctypes``.  The library lives in ``pyrecode_tpu_torch/_build/<hash>/``,
-keyed by a hash of every file in ``csrc/``, so an edited source builds anew
-and an unchanged one is built once per checkout.  The build runs at first
-use: importing this module needs neither ``nvcc`` nor a card.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, for Hopper (``sm_90a``), loaded with ``ctypes``.  The
+library lives in ``pyrecode_tpu_torch/_build/<hash>/``, keyed by a hash of
+every file in ``csrc/``, so an edited source builds anew and an unchanged
+one is built once per checkout.  The build runs at first use: importing this
+module needs neither ``nvcc`` nor a card.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libpyrecode_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -58,16 +59,30 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    objects, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"     # nvcc links by the suffix
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c", "-o", str(obj),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports = [(proc.communicate()[0], proc.returncode) for proc in procs]
+    failed = [out for out, rc in reports if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
+                          capture_output=True, text=True)
+    for obj in objects:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     if verbose:
-        print(proc.stdout + proc.stderr)
-        print(f"nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s")
+        print("".join(out for out, _ in reports))
+        print(f"nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s "
+              f"({len(objects)} sources in parallel, then one link)")
     os.replace(tmp, lib)
     return lib
 
@@ -92,10 +107,14 @@ def load() -> ctypes.CDLL:
             lib.pr_rans_encode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
             lib.pr_rans_decode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
             lib.pr_posdecode.argtypes = [p, p, p, p, p, i64, i64, i64, p]
+            lib.pr_label_l2l4.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64,
+                                          i64, i64, i64, p]
+            lib.pr_bitmap_positions.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_encode_l1,
                        lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
                        lib.pr_assemble, lib.pr_rans_hist, lib.pr_rans_encode,
-                       lib.pr_rans_decode, lib.pr_posdecode):
+                       lib.pr_rans_decode, lib.pr_posdecode, lib.pr_label_l2l4,
+                       lib.pr_bitmap_positions):
                 fn.restype = ctypes.c_int
             for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles):
                 fn.argtypes = [i64]

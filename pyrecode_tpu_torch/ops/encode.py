@@ -1,9 +1,11 @@
-"""Batched L1/L3 encode: threshold -> reduce -> pack.
+"""Batched encode at every reduction level: threshold -> reduce -> pack.
 
-Port of the L1/L3 branch of pyrecode_tpu/ops/encode.py:encode_frames_auto.
-A whole batch goes through the fused encode kernel and, for L1, the value
-pack; variable-length streams come back in max-bound buffers with true
-counts, and the host writer slices ``packed[i, :packed_len[i]]``.
+Port of pyrecode_tpu/ops/encode.py:encode_frames_auto.  L1/L3 go through
+the fused encode kernel (:mod:`.hopper_encode`) and, for L1, the value pack;
+L2/L4 through the fused label kernel (:mod:`.hopper_label`) and, for L2, the
+pack of the per-puddle statistics.  Variable-length streams come back in
+max-bound buffers with true counts, and the host writer slices
+``packed[i, :packed_len[i]]``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from . import _launch
 from .bitpack import bitpack_values_device, packed_group_shape
 from .hopper_encode import encode_l1
+from .hopper_label import MODE_BY_CONFIG, encode_l2l4
 
 
 @dataclass
@@ -23,9 +26,9 @@ class EncodeResult:
     """Tensors produced by one encode batch.
 
     bitmap : (B, ceil(H*W/8)) uint8 — bit-packed binary map
-    packed : (B, max_packed_bytes) uint8 or None — packed L1 residual stream,
-        zero-padded beyond packed_len
-    counts : (B,) int32 — foreground pixels
+    packed : (B, max_packed_bytes) uint8 or None — packed L1 residual or L2
+        summary-stat stream, zero-padded beyond packed_len
+    counts : (B,) int32 — foreground pixels (L1/L3) or puddles (L2/L4)
     packed_len : (B,) int32 or None — valid bytes of ``packed`` per frame
     overflow : (B,) bool — the count exceeded the buffer bound
     positions : (B, max_values) int32 or None — each value's pixel index
@@ -41,26 +44,39 @@ class EncodeResult:
 
 
 def encode_frames_auto(frames: torch.Tensor, threshold: torch.Tensor, reduction_level: int,
-                       bit_depth: int, max_values: int,
-                       with_positions: bool = False) -> EncodeResult:
+                       bit_depth: int, max_values: int, with_positions: bool = False,
+                       l2_statistic: str = "max", l4_scheme: str = "weighted_average",
+                       stat_limit: Optional[int] = None) -> EncodeResult:
     """Encode (B, H, W) uint16 frames against an (H, W) uint16 threshold.
 
-    ``max_values`` bounds the foreground count per frame (rounded up to the
-    pack group); a frame above it is flagged in ``overflow``.
-    ``with_positions`` (L1) also returns each value's pixel index, with the
-    values masked to ``bit_depth`` bits, as the JAX writer asks the TPU
-    kernel for scheme-12 device entropy.
+    ``max_values`` bounds the values per frame: foreground pixels (L1) or
+    puddles (L2/L4), rounded up to the pack group where values are packed;
+    a frame above it is flagged in ``overflow``.  ``with_positions`` (L1)
+    also returns each value's pixel index, with the values masked to
+    ``bit_depth`` bits, as the JAX writer asks the TPU kernel for scheme-12
+    device entropy.  L2 statistics saturate at ``stat_limit`` (default
+    ``2**bit_depth - 1``; the writer passes the smaller of that and the
+    source dtype's max, as oracle.reduce_frame saturates).
     """
-    if reduction_level in (2, 4):
-        raise NotImplementedError(
-            "L2/L4 encode is not ported yet (ROADMAP Queue 1 item 8)")
-    if reduction_level not in (1, 3):
+    if reduction_level not in (1, 2, 3, 4):
         raise ValueError(f"Unknown reduction level: {reduction_level}")
-    with_values = reduction_level == 1
-    g_vals, _ = packed_group_shape(bit_depth)
-    out_size = -(-max_values // g_vals) * g_vals if with_values else 0
-    if with_positions and not with_values:
+    if with_positions and reduction_level != 1:
         raise ValueError("positions come with the values of L1")
+    g_vals, _ = packed_group_shape(bit_depth)
+    if reduction_level in (2, 4):
+        mode = MODE_BY_CONFIG[(reduction_level,
+                               l2_statistic if reduction_level == 2 else l4_scheme)]
+        if stat_limit is None:
+            stat_limit = (1 << bit_depth) - 1
+        out_size = -(-max_values // g_vals) * g_vals if reduction_level == 2 else max_values
+        bitmap, stats, counts, overflow = encode_l2l4(frames, threshold, mode, out_size,
+                                                      stat_limit)
+        if stats is None:
+            return EncodeResult(bitmap, None, counts, None, overflow)
+        return EncodeResult(bitmap, bitpack_values_device(stats, bit_depth), counts,
+                            (counts * bit_depth + 7) // 8, overflow)
+    with_values = reduction_level == 1
+    out_size = -(-max_values // g_vals) * g_vals if with_values else 0
     out = encode_l1(frames, threshold, out_size, with_values, with_positions,
                     bit_depth if with_positions else 0)
     bitmap, comp, counts, overflow = out[:4]

@@ -30,6 +30,7 @@ import torch
 
 from . import _launch
 from .bitpack import pack_bits
+from .compact import stream_compact
 
 LAUNCHES = _launch.LaunchCounter()
 POSITIONS_LAUNCHES = _launch.LaunchCounter()   # the launches that store positions
@@ -66,17 +67,13 @@ def encode_l1_plain(frames: torch.Tensor, threshold: torch.Tensor, out_size: int
     bitmap = pack_bits(torch.nn.functional.pad(mask.to(torch.uint8), (0, -n % 8)))
     if not with_values:
         return bitmap, None, counts, torch.zeros(B, dtype=torch.bool, device=frames.device)
-    comp = torch.zeros((B, out_size), dtype=torch.int32, device=frames.device)
-    pos = torch.zeros_like(comp) if with_positions else None
     residual = f - t
     if with_positions and pos_vbits:
         residual = residual & ((1 << pos_vbits) - 1)
-    for b in range(B):
-        vals = residual[b][mask[b]][:out_size]
-        comp[b, :vals.numel()] = vals
-        if with_positions:
-            pos[b, :vals.numel()] = torch.nonzero(mask[b]).flatten()[:out_size].to(torch.int32)
+    comp = stream_compact(residual, mask, out_size)[0]
     if with_positions:
+        index = torch.arange(n, dtype=torch.int32, device=frames.device).expand(B, n)
+        pos = stream_compact(index, mask, out_size)[0]
         return bitmap, comp, counts, counts > out_size, pos
     return bitmap, comp, counts, counts > out_size
 

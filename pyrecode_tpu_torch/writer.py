@@ -8,9 +8,9 @@ files are the JAX writer's bytes.  Its device stages:
 
 * ``_dispatch_encode`` moves the batch to the device, counts the foreground
   (one host sync, as in the JAX writer), picks the value buffer with
-  ``_bucket_for`` and launches the fused encode (with the values' pixel
-  positions when scheme 12 codes on the device) and the value pack without
-  waiting for them;
+  ``_bucket_for`` and launches the fused encode (L1/L3: with the values'
+  pixel positions when scheme 12 codes on the device; L2/L4: the label
+  kernel) and the value pack without waiting for them;
 * ``_materialize_streams`` entropy-codes the streams on the device
   (``device_entropy``: scheme-0 deflate or scheme-12 rANS) and returns the
   coded streams, or copies the raw streams back for host entropy coding.
@@ -51,8 +51,10 @@ _L2_STATISTIC_NAMES = {0: "max", 1: "max", 2: "sum"}
 _L4_SCHEME_NAMES = {0: "weighted_average", 1: "weighted_average", 2: "max", 3: "unweighted"}
 
 _MIN_BUCKET = 1 << 10
-# the JAX writer pads bitmap streams to its deflate kernel's 16384-byte step
-# before the scheme-12 dense-bitmap test compares the value count with it
+# the JAX writer pads its streams to its deflate kernel's 16384-byte step
+# before the scheme-12 coders see them: the L1 dense-bitmap test compares the
+# value count with the padded width, and the gap coder's positions capacity
+# is two a byte of it
 _JAX_BITMAP_STEP = 16384
 
 
@@ -83,10 +85,11 @@ class ReCoDeWriter:
         ``fast_deflate`` (scheme 0) codes with the native sparse deflate.
 
         ``device_entropy`` entropy-codes on the device (mode 1): scheme 0 by
-        the deflate kernels, scheme 12 (L1, 9..12-bit values) by the rANS
-        kernels.  None, the default, turns it on where it applies when the
-        device is CUDA and ``use_tpu`` is set, as the JAX writer does on a
-        TPU; True forces it (on the CPU it runs the kernels' twins) and
+        the deflate kernels, scheme 12 by the rANS kernels (at L1 with
+        9..12-bit values; at L2-L4 the streams in gap mode from the bitmap ->
+        positions kernel).  None, the default, turns it on where it applies
+        when the device is CUDA and ``use_tpu`` is set, as the JAX writer does
+        on a TPU; True forces it (on the CPU it runs the kernels' twins) and
         raises where it is not ported; False turns it off.  Scheme 0 on the
         device raises when the native host library cannot be built, rather
         than coding on the host.  Scheme 0 writes the same bytes either way;
@@ -156,12 +159,12 @@ class ReCoDeWriter:
 
         self._threshold_dev = None
         if self._init_params.use_tpu:
-            if self._reduction_level not in (1, 3):
-                raise NotImplementedError(
-                    "L2/L4 encode is not ported yet (ROADMAP Queue 1 item 8)")
             if self._src_dtype not in (np.uint8, np.uint16):
                 raise NotImplementedError(
                     f"the encode kernel takes 8- and 16-bit unsigned sources, not {self._src_dtype}")
+            # L2 statistics saturate at the source dtype's max, then at the
+            # bit depth (oracle.reduce_frame); the device frames are uint16
+            self._stat_limit = min(int(np.iinfo(self._src_dtype).max), (1 << self._bit_depth) - 1)
             self._threshold_dev = self._to_device(self._threshold)
         self._device_entropy = self._resolve_device_entropy(device_entropy)
         # observed token densities per stream kind: lets deflate_batch_device
@@ -202,13 +205,9 @@ class ReCoDeWriter:
         if self._rc_operation_mode != 1 or self._scheme not in (0, 12):
             return ValueError(
                 "device_entropy needs rc_operation_mode 1 and compression_scheme 0 or 12")
-        if self._scheme == 12 and self._reduction_level != 1:
+        if self._scheme == 12 and self._reduction_level == 1 and not 9 <= self._bit_depth <= 12:
             return NotImplementedError(
-                "scheme-12 device entropy at L3 needs the bitmap -> positions kernel (#12), "
-                "not ported yet (ROADMAP Queue 2)")
-        if self._scheme == 12 and not 9 <= self._bit_depth <= 12:
-            return NotImplementedError(
-                "scheme-12 device entropy of values outside 9..12 bits is not ported "
+                "scheme-12 device entropy of L1 values outside 9..12 bits is not ported "
                 "(ROADMAP Queue 3: the JAX writer codes 8-bit values with the bitmap's positions)")
         return None
 
@@ -494,11 +493,15 @@ class ReCoDeWriter:
         max_count = int(counts.max()) if counts.numel() else 0
         bucket = _bucket_for(max_count, int(self._header["ny"]) * int(self._header["nx"]))
         # scheme-12 device entropy codes the bitmap by its set-bit positions:
-        # the encode kernel stores them beside the values
-        with_positions = self._device_entropy and self._scheme == 12
+        # the L1 encode kernel stores them beside the values (the foreground
+        # count also bounds the L2/L4 puddle count)
+        with_positions = (self._device_entropy and self._scheme == 12
+                          and self._reduction_level == 1)
         res = encode_frames_auto(frames, self._threshold_dev, self._reduction_level,
                                  self._bit_depth, max_values=bucket,
-                                 with_positions=with_positions)
+                                 with_positions=with_positions,
+                                 l2_statistic=self._l2_statistic, l4_scheme=self._l4_scheme,
+                                 stat_limit=self._stat_limit)
         return ("torch", res)
 
     def _materialize_streams(self, batch: np.ndarray, dispatched):
@@ -529,8 +532,10 @@ class ReCoDeWriter:
         B, n_bm = res.bitmap.shape
         plens = None if res.packed is None else res.packed_len.cpu().numpy().astype(np.int64)
         stt = datetime.now()
-        if self._scheme == 12:
+        if self._scheme == 12 and self._reduction_level == 1:
             cbm = self._code_bitmaps_rans(res, plens)
+        elif self._scheme == 12:
+            cbm = self._code_gaps(res.bitmap, np.full(B, n_bm, np.int32))
         else:
             cbm = deflate_batch_device(res.bitmap, np.full(B, n_bm, np.int32),
                                        hint_state=self._entropy_hints["bm"])
@@ -538,9 +543,11 @@ class ReCoDeWriter:
         if res.packed is None:
             return [(c, None, 0) for c in cbm], t_bm, timedelta(0)
         stt = datetime.now()
-        if self._scheme == 12:
+        if self._scheme == 12 and self._reduction_level == 1:
             # the values as bit_depth-wide symbols (symbol mode)
             cpx = rans.rans_symbols_batch_device(res.packed, plens, self._bit_depth)
+        elif self._scheme == 12:
+            cpx = self._code_gaps(res.packed, plens)
         else:
             cpx = deflate_batch_device(res.packed, plens, hint_state=self._entropy_hints["px"])
         t_px = datetime.now() - stt
@@ -557,6 +564,16 @@ class ReCoDeWriter:
             return rans.rans_symbols_batch_device(res.bitmap, lens, 8)
         return rans.rans_gaps_batch_device(res.bitmap, lens, positions=res.positions,
                                            pos_counts=res.counts)
+
+    @staticmethod
+    def _code_gaps(streams, lens):
+        """Scheme-12 streams of L2/L3/L4 (bitmaps, and L2's packed statistics)
+        in gap mode from the bitmap -> positions kernel, padded as the JAX
+        writer pads them: the positions capacity is two a byte of it."""
+        pad = -streams.shape[1] % _JAX_BITMAP_STEP
+        if pad:
+            streams = torch.nn.functional.pad(streams, (0, pad))
+        return rans.rans_gaps_batch_device(streams, lens)
 
     def _finish_batch(self, batch: np.ndarray, first_abs_index: int, dispatched,
                       n_in_batch: int, run_metrics: dict) -> None:

@@ -11,6 +11,7 @@ import torch
 
 from pyrecode_tpu import oracle
 from pyrecode_tpu.ops import count_foreground as jax_count_foreground
+from pyrecode_tpu.ops import encode_frames as jax_encode_frames
 from pyrecode_tpu.ops import encode_frames_auto as jax_encode_frames_auto
 from pyrecode_tpu.ops import pallas_encode
 from pyrecode_tpu_torch import kernel_launch_counts
@@ -123,9 +124,15 @@ def test_encode_frames_auto_matches_jax():
     assert l3.packed is None and np.array_equal(l3.bitmap.numpy(), res.bitmap.numpy())
     assert np.array_equal(count_foreground(torch.from_numpy(frames), torch.from_numpy(thr)).numpy(),
                           np.asarray(jax_count_foreground(frames, thr)))
-    for level in (2, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            encode_frames_auto(torch.from_numpy(frames), torch.from_numpy(thr), level, 12, 2048)
+    for level in (2, 4):   # the JAX writer's L2/L4 path is ops.encode_frames (XLA)
+        got = encode_frames_auto(torch.from_numpy(frames), torch.from_numpy(thr), level, 12, 2048)
+        want = jax_encode_frames(frames, thr, reduction_level=level, bit_depth=12,
+                                 max_values=2048)
+        assert np.array_equal(got.bitmap.numpy(), np.asarray(want.bitmap))
+        assert np.array_equal(got.counts.numpy(), np.asarray(want.counts))
+        if level == 2:
+            assert np.array_equal(got.packed.numpy(), np.asarray(want.packed))
+            assert np.array_equal(got.packed_len.numpy(), np.asarray(want.packed_len))
 
 
 def test_wrapper_checks_and_counts_no_host_launch():

@@ -18,7 +18,8 @@ from pyrecode_tpu_torch import InputParams, native
 from pyrecode_tpu_torch.codecs import rans
 from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tables
 from pyrecode_tpu_torch.ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode,
-                                    hopper_rans)
+                                    hopper_gaps, hopper_label, hopper_rans)
+from chip_smoke import label_edge_frames, make_puddle_frames
 
 pytestmark = pytest.mark.gpu
 
@@ -241,3 +242,38 @@ def test_card_slice_matches_host(cuda, tmp_path):
     thr = dark.astype(np.int64) + 3
     assert np.array_equal(reader.read_frames_dense(0, 6), np.where(data > thr, data - thr, 0))
     reader.close()
+
+
+@pytest.mark.parametrize("mode", sorted(hopper_label.MODES))
+def test_label_l2l4_matches_twin(cuda, mode):
+    """Puddle frames (out_size that fits, and one that overflows), a ragged
+    geometry, and the edge battery on a zero threshold; the CUDA path
+    launches the kernel, not the twin."""
+    rng = np.random.default_rng(31)
+    frames, dark = make_puddle_frames(rng, 3, 96, 160, hits=40000 * 64)
+    ragged, rdark = make_puddle_frames(rng, 2, 37, 29, hits=40000 * 64)
+    edge = np.stack(list(label_edge_frames(rng, 64, 128).values()))
+    cases = [(frames, dark + 2, 96 * 160), (frames, dark + 2, 20), (ragged, rdark + 2, 37 * 29),
+             (edge, np.zeros((64, 128), np.uint16), 64 * 128)]
+    for f, t, out_size in cases:
+        f, t = torch.from_numpy(f).to(cuda), torch.from_numpy(t).to(cuda)
+        before = hopper_label.LAUNCHES.value
+        got = hopper_label.encode_l2l4(f, t, mode, out_size, 4095)
+        assert hopper_label.LAUNCHES.value == before + 1
+        want = hopper_label.encode_l2l4_plain(f, t, mode, out_size, 4095)
+        assert hopper_label.LAUNCHES.value == before + 1
+        _equal(got, want)
+        assert bool(got[3].any()) == (out_size == 20)
+
+
+def test_bitmap_positions_matches_twin(cuda):
+    rng = np.random.default_rng(33)
+    for nb, density in ((16384, 0.05), (12345, 0.3), (8192, 0.0), (5001, 1.0)):
+        bits = (rng.random((3, nb * 8)) < density).astype(np.uint8)
+        bm = torch.from_numpy(np.packbits(bits, axis=1, bitorder="little")).to(cuda)
+        for out_size in (2 * nb, 1000):
+            before = hopper_gaps.LAUNCHES.value
+            got = hopper_gaps.bitmap_positions(bm, out_size)
+            assert hopper_gaps.LAUNCHES.value == before + 1
+            _equal(got, hopper_gaps.bitmap_positions_plain(bm, out_size))
+            assert got[2].tolist() == [int(n) > out_size for n in bits.sum(axis=1)]

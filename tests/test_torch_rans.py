@@ -263,8 +263,16 @@ def test_gaps_batch_matches_jax():
 
 
 def test_gaps_without_positions_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trans.rans_gaps_batch_device(torch.zeros((1, 8192), dtype=torch.uint8), [8192])
+    """Without positions the coder takes them from the bitmap -> positions
+    kernel (its twin here) and no longer raises: an empty bitmap and a
+    sparse one of fewer than 65536 set bits take the host coder's bytes."""
+    bitmaps = np.zeros((2, 8192), np.uint8)
+    bitmaps[1, :8000:7] = 0x21
+    got = trans.rans_gaps_batch_device(torch.from_numpy(bitmaps), [8192, 8000])
+    assert got == [trans.compress_gaps(bitmaps[0].tobytes()),
+                   trans.compress_gaps(bitmaps[1, :8000].tobytes())]
+    assert [trans.decompress(s) for s in got] == [bitmaps[0].tobytes(),
+                                                  bitmaps[1, :8000].tobytes()]
 
 
 def test_adler32_device_matches_zlib():

@@ -248,14 +248,16 @@ def test_unported_options_raise(tmp_path):
         port.ReCoDeServer("batch", isolation="process", device="cpu")
     assert writer()._device_entropy is True
     assert writer(compression_scheme=12)._device_entropy is True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        writer(compression_scheme=12, reduction_level=3)
+    # scheme-12 device entropy of L2-L4 codes gaps from the bitmap -> positions kernel
+    assert writer(compression_scheme=12, reduction_level=3)._device_entropy is True
+    assert writer(compression_scheme=12, reduction_level=2, source_bit_depth=8,
+                  target_bit_depth=8)._device_entropy is True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         writer(compression_scheme=12, source_bit_depth=8, target_bit_depth=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
-                          input_params=_params(shape=(2, 16, 16), num_threads=1,
-                                               reduction_level=2), device="cpu")
+    assert port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
+                             input_params=_params(shape=(2, 16, 16), num_threads=1,
+                                                  reduction_level=2),
+                             device="cpu")._reduction_level == 2
     w = port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
                           input_params=params, device="cpu")
     w.start()
