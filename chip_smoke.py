@@ -13,9 +13,11 @@ Phases (each raises on failure; nothing is caught):
    exactly, at the slice's shapes (4 x 4096^2 frames, ~1% foreground, and the
    streams of that batch: bitmaps and packed values for the deflate
    tokenizer and assembler, gap and value symbols for the rANS histogram,
-   encode and decode, positions and values for the positions decode) plus
-   edge cases; one frame against the host oracle; every stream deflated on
-   the card against native.deflate_sparse; CUDA-event times beside each
+   encode and decode, positions and values for the positions decode, the
+   bitmaps' deflate tokens for the token rANS encode) plus edge cases; one
+   frame against the host oracle; every stream deflated on the card against
+   native.deflate_sparse, every bitmap coded by the byte-mode
+   rans_batch_device against native.rans_compress; CUDA-event times beside each
    kernel's bound and, where one PyTorch call computes the same function,
    that call's time;
 4. the scheme-0 slice: ReCoDeServer('batch') with 2 thread-mode nodes on 16
@@ -36,7 +38,17 @@ Phases (each raises on failure; nothing is caught):
    bit-exact against the plain version's bitmaps on every frame and against
    oracle.reduce_frame on two; L2 summary_stats of get_frame equal to the
    oracle's; every scheme-12 stream decoded by the host rans.decompress;
-   one L4 part file written with device and with host entropy, byte-equal.
+   one L4 part file written with device and with host entropy, byte-equal;
+8. the multi-device path on 8 of those frames (L2/L4 on 8 puddle frames):
+   pyrecode_tpu_torch.parallel.dryrun_multidevice on a 2 x 1 and a 2 x 2
+   mesh (shard_rows) of the one card, every step checked (each frame against
+   the unsharded encode, two against oracle.reduce_frame, the entropy steps
+   against native.deflate_sparse, the rANS steps' symbols against the host
+   tokenizer, rans_batch_device against native.rans_compress, a two-writer
+   merge), then two gloo ranks started with the spawn method, each encoding
+   its half of the frames on the card, whose gathered blocks must equal one
+   process's; every kernel of the path launched by the path's own steps
+   (the dryruns count them without the references they are checked against).
 
 Phase 3 also holds the label kernel (all five L2/L4 modes) and the bitmap
 -> positions kernel against their twins on a batch of puddle frames, its
@@ -53,6 +65,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -66,7 +79,7 @@ from pyrecode_tpu_torch.constants import rc_cfg as rc
 from pyrecode_tpu_torch.ops import (_build, _launch, hopper_bitpack, hopper_decode, hopper_deflate,
                                     hopper_encode, hopper_gaps, hopper_label, hopper_rans)
 from pyrecode_tpu_torch.ops.bitpack import bitpack_values, unpack_bits
-from pyrecode_tpu_torch.ops.encode import encode_frames_auto
+from pyrecode_tpu_torch.ops.encode import count_foreground, encode_frames_auto
 from pyrecode_tpu_torch.writer import _bucket_for
 
 REPO = Path(__file__).resolve().parent
@@ -87,6 +100,8 @@ KERNELS = {
     "rans_hist": ("pyrecode_tpu_torch/csrc/rans_hist.cu", "pyrecode_tpu/ops/pallas_rans.py:809"),
     "rans_encode": ("pyrecode_tpu_torch/csrc/rans_encode.cu",
                     "pyrecode_tpu/ops/pallas_rans.py:319"),
+    "rans_encode_tokens": ("pyrecode_tpu_torch/csrc/rans_encode.cu",
+                           "pyrecode_tpu/ops/pallas_rans.py:297"),
     "rans_decode": ("pyrecode_tpu_torch/csrc/rans_decode.cu",
                     "pyrecode_tpu/ops/pallas_rans.py:674"),
     "posdecode": ("pyrecode_tpu_torch/csrc/posdecode.cu", "pyrecode_tpu/ops/pallas_decode.py:457"),
@@ -100,6 +115,10 @@ SCHEME0_KERNELS = ("encode_l1", "bitpack12", "tokenize", "tokenize_compact", "as
                    "bitunpack12", "decode_l1")
 SCHEME12_KERNELS = ("encode_l1", "encode_l1_positions", "bitpack12", "rans_hist", "rans_encode",
                     "bitunpack12", "rans_decode", "posdecode", "decode_l1")
+MULTIDEVICE_KERNELS = ("encode_l1", "bitpack12", "label_l2l4", "tokenize", "assemble",
+                       "rans_encode_tokens", "rans_decode", "bitunpack12", "decode_l1")
+MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
+RANK_TIMEOUT_S = 300.0    # phase 8 (b): a rank that runs longer fails the script
 # (level, L2 statistic or L4 scheme, compression scheme) -> the kernels of that slice
 LEVEL_SLICES = {
     (2, "sum", 12): ("label_l2l4", "bitpack12", "bitmap_positions", "rans_hist", "rans_encode",
@@ -384,10 +403,8 @@ def check_deflate(device, rng, check, bitmap, packed, plens):
 def rans_tables(hist):
     """Each stream's quantized frequencies (B, 4096) int32 and their prefix,
     from a histogram, as the scheme-12 coders build them on the host."""
-    freq = np.stack([rans.quantize_freqs(h).astype(np.int32) for h in hist.cpu().numpy()])
-    cum = np.zeros_like(freq)
-    cum[:, 1:] = np.cumsum(freq, axis=1)[:, :-1]
-    return freq, cum
+    freq, cum = rans.freq_tables(hist.cpu().numpy(), hopper_rans.ALPHABET)
+    return freq.astype(np.int32), cum.astype(np.int32)
 
 
 def reversed_bodies(body, counts):
@@ -550,6 +567,85 @@ def check_rans(device, rng, check, frames, thr, out_size, packed):
     print("  20% frames: the writer coded the bitmaps as 8-bit symbols at 8192 lanes; host "
           "decode and the symbol read chain exact")
     return timed
+
+
+def token_tables(tok, m):
+    """Quantized byte-mode frequencies (B, 4096) int32 of each stream's first
+    m inverted tokens (286-symbol alphabet in front) and their prefix."""
+    sym = np.asarray(hopper_rans.TOKEN_SYMBOL)
+    hist = []
+    for row, k in zip(tok, m):
+        idx = hopper_rans.NO_TOKEN - row[:k].astype(np.int64)
+        hist.append(np.bincount(sym[idx[(idx >= 0) & (idx < 512)]], minlength=rans.N_SYM))
+    freq, cum = rans.freq_tables(hist, rans.N_SYM)
+    return freq.astype(np.int32), cum.astype(np.int32)
+
+
+def token_battery(rng):
+    """Inverted token streams at #9t's edges: empty, one token, literals only
+    (m = 3000), every match index and so every length code, a one-symbol
+    alphabet (f = 4096), pad and out-of-range tokens among the counted
+    ones; m = 3 * 1024 + 1 where not stated."""
+    n = 3 * 1024 + 1
+    i = np.arange(n)
+    lit = rng.integers(0, 256, n)
+    mixed = np.where(i % 2, 256 + (i // 2) % 256, lit)
+    idx = np.stack([lit, np.full(n, 77), lit, mixed, np.full(n, 7), mixed])
+    tok = hopper_rans.NO_TOKEN - idx
+    tok[5, ::5] = 0
+    tok[5, 1::7] = 600
+    m = np.array([0, 1, 3000, n, 2500, n], np.int32)
+    return tok.astype(np.int32), m
+
+
+def check_rans_tokens(device, rng, check, bitmap):
+    """Phase 3, byte mode: the token rANS encode (#9t) against its twin on
+    the tokens of the slice's bitmap streams (compacted int32, as
+    rans_batch_device codes them, and uint16) and on an edge battery; every
+    stream of rans_batch_device on those bitmaps against
+    native.rans_compress at 1024 lanes.  Returns the timing entry at the
+    main path's input."""
+    B = bitmap.shape[0]
+    full = torch.full((B,), bitmap.shape[1], dtype=torch.int32, device=device)
+    tok, hist, _ = hopper_deflate.tokenize(bitmap, full)
+    m = hist[:, :rans.N_SYM].sum(dim=1, dtype=torch.int32)
+    bound = rans.token_capacity(m.cpu().numpy())
+    dense = hopper_deflate.compact_tokens(tok, bound)[0]
+    freq, cum = token_tables(dense.cpu().numpy(), m.cpu().numpy())
+    tables = [torch.from_numpy(a).to(device) for a in (freq, cum)]
+    out_bound = 2 * bound + 16
+    args = (dense, *tables, m, out_bound)
+    body, states, counts = hopper_rans.rans_encode_tokens(*args)
+    check("rans_encode_tokens", [body, states, counts],
+          hopper_rans.rans_encode_tokens_plain(*args), "slice bitmap tokens")
+    u16 = _launch.i32_to_u16(dense)
+    check("rans_encode_tokens", hopper_rans.rans_encode_tokens(u16, *tables, m, out_bound),
+          hopper_rans.rans_encode_tokens_plain(u16, *tables, m, out_bound),
+          "slice bitmap tokens, uint16")
+    edge, m_edge = token_battery(rng)
+    e_tables = [torch.from_numpy(a).to(device) for a in token_tables(edge, m_edge)]
+    e_args = (torch.from_numpy(edge).to(device), *e_tables, torch.from_numpy(m_edge).to(device),
+              2 * edge.shape[1] + 16)
+    got = hopper_rans.rans_encode_tokens(*e_args)
+    check("rans_encode_tokens", got, hopper_rans.rans_encode_tokens_plain(*e_args),
+          "edge battery")
+    expect(int(got[2][4]) == 0, "a one-symbol alphabet must emit no body bytes")
+    print("  rans_encode_tokens: a one-symbol alphabet emits no body bytes (the numpy contract)")
+
+    raws = [row.tobytes() for row in bitmap.cpu().numpy()]
+    coded = rans.rans_batch_device(bitmap, [len(r) for r in raws])
+    for i, (raw, stream) in enumerate(zip(raws, coded)):
+        # below 1024 tokens the host coder narrows its lanes: the streams differ
+        expect(int(m[i]) < 1024 or stream == native.rans_compress(raw, 1024),
+               f"rans_batch_device bitmap {i} differs from native.rans_compress(raw, 1024)")
+        expect(rans.decompress(stream) == raw, f"rans_batch_device bitmap {i} does not decode")
+    print(f"  rans_batch_device: {B} bitmap streams equal native.rans_compress at 1024 lanes "
+          "where they hold 1024 tokens or more "
+          f"({int(m.sum())} tokens, body {int(counts.sum())} bytes)")
+    # no PyTorch call codes rANS; the bound: tokens read, body written
+    return (lambda: hopper_rans.rans_encode_tokens(*args),
+            lambda: hopper_rans.rans_encode_tokens_plain(*args),
+            4 * int(m.sum()) + int(counts.sum()), None)
 
 
 def label_batteries(device, rng, height: int, width: int):
@@ -748,6 +844,7 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     plens = (counts_dev * 12 + 7) // 8
     deflate_timed = check_deflate(device, rng, check, bitmap, packed, plens)
     rans_timed = check_rans(device, rng, check, frames, thr, out_size, packed)
+    tokens_timed = check_rans_tokens(device, rng, check, bitmap)
     label_timed, label_modes = check_label(device, rng, check, n_frames, height, width)
 
     if device.type != "cuda":
@@ -798,6 +895,8 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
         for name, entry in rans_timed[what].items():
             out[name] = measure(entry, err[name], reps, plain_reps)
             report(name, what)
+    out["rans_encode_tokens"] = measure(tokens_timed, err["rans_encode_tokens"], reps, plain_reps)
+    report("rans_encode_tokens", "slice bitmap tokens")
     # L2 sum and the L2/L3 bitmaps of the puddle batch; the other modes' times beside
     for name, entry in label_timed.items():
         out[name] = measure(entry, err[name], reps, plain_reps)
@@ -1070,6 +1169,110 @@ def run_level_slice(device, data, dark, work_dir: Path, level: int, statistic, s
     return launches, write_s, read_s
 
 
+def multidevice_rank(rank: int, world: int, port_no: int, device: str, frames_path: str,
+                     threshold_path: str, out_size: int, out_path: str) -> None:
+    """Phase 8 (b), one rank of a gloo process group: encode this rank's
+    contiguous half of the frames on a one-device mesh and gather the blocks
+    to rank 0, which writes them to ``out_path``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from pyrecode_tpu_torch.parallel import make_codec_mesh
+    from pyrecode_tpu_torch.parallel.multihost import (gather_ordered_blocks, make_encode_step,
+                                                       replicate_threshold)
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port_no}", world_size=world,
+                            rank=rank)
+    frames = np.load(frames_path, mmap_mode="r")
+    share = frames.shape[0] // world
+    local = np.array(frames[rank * share:(rank + 1) * share])
+    mesh = make_codec_mesh(1, 1, [device])
+    step = make_encode_step(mesh, out_size, bit_depth=12)
+    bitmap, packed, counts, overflow = step(local, replicate_threshold(np.load(threshold_path),
+                                                                       mesh))
+    expect(not overflow.numpy().any(), f"rank {rank}: encode overflow")
+    blocks = gather_ordered_blocks(bitmap, packed, counts, bit_depth=12)
+    expect((blocks is not None) == (rank == 0), f"rank {rank}: gathered blocks on the wrong rank")
+    if rank == 0:
+        with open(out_path, "wb") as fp:
+            pickle.dump(blocks, fp)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_multidevice(device, data, thr, puddles, pthr, work_dir: Path):
+    """Phase 8: (a) dryrun_multidevice on a 2 x 1 mesh and a 2 x 2 mesh
+    (shard_rows) of ``device`` repeated, (b) MD_WORLD processes of a gloo
+    group, each encoding its contiguous share of the frames on ``device``,
+    whose gathered blocks must equal (a)'s.  Returns (the launches of (a)'s
+    own steps, as the dryruns count them, without those of the references
+    they are checked against; walls by step and mesh; (b)'s wall)."""
+    import multiprocessing
+    import pickle
+
+    from pyrecode_tpu_torch.parallel import dryrun_multidevice
+
+    port.reset_kernel_launch_counts()
+    reports, dryrun_s = {}, {}
+    for n_data, n_space in ((2, 1), (2, 2)):
+        n = n_data * n_space
+        t0 = time.perf_counter()
+        reports[n_data, n_space] = dryrun_multidevice(n, [device] * n, n_space=n_space,
+                                                      data=(data, thr), puddles=(puddles, pthr))
+        dryrun_s[f"{n_data}x{n_space}"] = time.perf_counter() - t0
+    launches = Counter()
+    for rep in reports.values():
+        launches.update(rep["launches"])
+    blocks = reports[2, 1]["blocks"]
+    expect(reports[2, 2]["blocks"] == blocks, "the 2 x 2 mesh gathered other blocks than 2 x 1")
+    for (n_data, n_space), rep in reports.items():
+        print(f"  dryrun_multidevice {n_data} x {n_space}: {len(rep['blocks'])} frames "
+              f"{data.shape[1]}x{data.shape[2]}, every check passed; rans_batch_device streams "
+              f"{rep['rans_batch_device']}")
+
+    frames_path, thr_path = work_dir / "md_frames.npy", work_dir / "md_threshold.npy"
+    np.save(frames_path, data)
+    np.save(thr_path, thr)
+    out_path = work_dir / "md_blocks.pkl"
+    out_size = int(count_foreground(torch.from_numpy(data).to(device),
+                                    torch.from_numpy(thr).to(device)).max())
+    ctx = multiprocessing.get_context("spawn")
+    port_no = free_port()
+    t0 = time.perf_counter()
+    ranks = [ctx.Process(target=multidevice_rank,
+                         args=(r, MD_WORLD, port_no, str(device), str(frames_path), str(thr_path),
+                               out_size, str(out_path))) for r in range(MD_WORLD)]
+    for proc in ranks:
+        proc.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    for proc in ranks:
+        proc.join(max(deadline - time.monotonic(), 0))
+    alive = [proc for proc in ranks if proc.is_alive()]
+    for proc in alive:
+        proc.kill()
+        proc.join()
+    expect(not alive, f"{len(alive)} rank(s) did not finish within {RANK_TIMEOUT_S} s")
+    codes = [proc.exitcode for proc in ranks]
+    expect(codes == [0] * MD_WORLD, f"rank exit codes {codes}")
+    ranks_s = time.perf_counter() - t0
+    with open(out_path, "rb") as fp:
+        expect(pickle.load(fp) == blocks, "the ranks' gathered blocks differ from one process's")
+    print(f"  {MD_WORLD} gloo ranks on {device}: rank 0 gathered the {len(blocks)} blocks of one "
+          f"process ({ranks_s:.3f} s, spawn to exit)")
+    walls = {f"{n_data}x{n_space}": {**rep["walls"], "whole dryrun with its checks":
+                                     dryrun_s[f"{n_data}x{n_space}"]}
+             for (n_data, n_space), rep in reports.items()}
+    return dict(launches), walls, ranks_s
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU")
@@ -1122,6 +1325,15 @@ def main() -> None:
             if level == 4:
                 entropy_l4 = compare_entropy_paths(device, puddles, pdark, work_dir, level,
                                                    statistic)
+
+        print("multi-device path:")
+        counts, md_walls, ranks_s = run_multidevice(device, data[:8], dark + EPSILON,
+                                                    puddles[:8], pdark + EPSILON, work_dir)
+        launches["multidevice"] = counts
+        print(f"launches in the multi-device path's own steps: {counts}")
+        missing = [name for name in MULTIDEVICE_KERNELS if counts[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the multi-device path: {missing}")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     raw = data.nbytes
@@ -1131,6 +1343,10 @@ def main() -> None:
               f"{raw / write_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
         print(f"{what} read (read_frames_dense): {read_s:.3f} s, "
               f"{raw / read_s / 1e9:.3f} GB/s of raw frames [{gpu}]")
+    for mesh_shape, steps in md_walls.items():
+        print(f"multi-device {mesh_shape} mesh of {device} (8 frames): "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items()) + f" [{gpu}]")
+    print(f"multi-device, {MD_WORLD} gloo ranks, spawn to exit: {ranks_s:.3f} s [{gpu}]")
     for what, seconds in (("L1 scheme 0", entropy_s), ("L4 weighted_average scheme 0",
                                                        entropy_l4)):
         for device_entropy, name in ((True, "device"), (False, "host")):

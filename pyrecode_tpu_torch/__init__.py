@@ -11,8 +11,10 @@ kernels for ``sm_90a`` (``csrc/``) carry the device work: the fused L1/L3
 encode (with the values' pixel positions for scheme 12), the fused L2/L4
 label encode (puddle statistics, centroids), the 12-bit pack and unpack,
 the deflate tokenizer and bit assembler, the bitmap -> positions extraction,
-the rANS histogram, encode and decode, the L1 decode and the positions
-decode.
+the rANS histogram, encode (of symbols, and of deflate tokens for the
+byte-mode coder) and decode, the L1 decode and the positions decode.
+:mod:`pyrecode_tpu_torch.parallel` spreads the encode over a mesh of
+devices and gathers the blocks over ``torch.distributed``.
 
 The package is self-contained: it imports ``torch`` and never ``jax``, and
 nothing of :mod:`pyrecode_tpu`.  Headers, parameters, container layout,
@@ -54,6 +56,7 @@ _COUNTERS = {
     "assemble": hopper_deflate.ASSEMBLE_LAUNCHES,
     "rans_hist": hopper_rans.HIST_LAUNCHES,
     "rans_encode": hopper_rans.ENCODE_LAUNCHES,
+    "rans_encode_tokens": hopper_rans.ENCODE_TOKENS_LAUNCHES,
     "rans_decode": hopper_rans.DECODE_LAUNCHES,
     "bitunpack12": hopper_bitpack.UNPACK_LAUNCHES,
     "decode_l1": hopper_decode.LAUNCHES,

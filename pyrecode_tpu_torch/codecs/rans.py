@@ -5,7 +5,9 @@ host coders, header build and parse, frequency quantization, the gap
 transform, ``decompress``), and the port of its device half on torch
 tensors: the symbol- and gap-mode batch encoders, the batch decoders and
 the dense read chains, through the port's kernels (``ops/hopper_rans.py``,
-``ops/hopper_gaps.py``, ``ops/hopper_decode.py``, ``ops/hopper_encode.py``).  Every stream the
+``ops/hopper_gaps.py``, ``ops/hopper_decode.py``, ``ops/hopper_encode.py``),
+and the byte-mode batch encoder (``ops/hopper_deflate.py`` for its tokens
+and extra bits).  Every stream the
 device half writes is byte-identical to the JAX package's device coder on
 the same input: the same fixed lane counts (1024, or 8192 when every
 device-coded stream of a call has at least 2^21 symbols), the host coder
@@ -77,7 +79,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..ops import hopper_decode, hopper_gaps, hopper_rans
+from ..ops import hopper_decode, hopper_deflate, hopper_gaps, hopper_rans
 from ..ops.bitpack import bitunpack_values_device, packed_group_shape
 from .dyndeflate import LEN_BASE, LEN_EXTRA, NO_TOKEN, tokenize_bytes_np
 
@@ -694,20 +696,33 @@ def _raw_reader(streams, lengths, raw_cb):
     return raw
 
 
+def freq_tables(hist: np.ndarray, alphabet: int):
+    """The device coders' tables from histograms (B, >= alphabet): each
+    row's quantized frequencies of its first ``alphabet`` counts, (B, 4096)
+    int64 with the alphabet in front, and their exclusive prefix."""
+    freqs = np.zeros((len(hist), hopper_rans.ALPHABET), np.int64)
+    for i, row in enumerate(hist):
+        freqs[i, :alphabet] = quantize_freqs(row[:alphabet])
+    cums = np.zeros_like(freqs)
+    cums[:, 1:] = np.cumsum(freqs, axis=1)[:, :-1]
+    return freqs, cums
+
+
+def token_capacity(ms: np.ndarray) -> int:
+    """The dense token capacity of a byte-mode batch: its largest token
+    count, rounded up to the 1024 lanes."""
+    return -(-max(int(np.max(ms)), 1) // W_LANES) * W_LANES
+
+
 def _code_streams(syms, ms: np.ndarray, coded: np.ndarray, alphabet: int):
     """Histogram, host quantized tables and interleaved-rANS encode of the
     ``coded`` rows of ``syms`` (B, NPAD) int32.  Returns (freqs (B, 4096),
     lanes, bodies (B, max count) uint8, counts (B,), states (B, lanes))."""
     dev = syms.device
-    B = syms.shape[0]
     m_coded = np.where(coded, ms, 0).astype(np.int32)
     m_dev = torch.from_numpy(m_coded).to(dev)
-    hist = hopper_rans.rans_hist(syms, m_dev).cpu().numpy().astype(np.int64)
-    freqs = np.zeros((B, hopper_rans.ALPHABET), np.int64)
-    for i in np.flatnonzero(coded):
-        freqs[i, :alphabet] = quantize_freqs(hist[i, :alphabet])
-    cums = np.zeros_like(freqs)
-    cums[:, 1:] = np.cumsum(freqs, axis=1)[:, :-1]
+    hist = hopper_rans.rans_hist(syms, m_dev).cpu().numpy()
+    freqs, cums = freq_tables(hist, alphabet)
     groups = _groups_for(ms)
     out_bound = 2 * int(m_coded.max()) + 16   # <= 2 bytes a symbol
     body, states, counts = hopper_rans.rans_encode(
@@ -820,6 +835,79 @@ def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
                                         gap=True)
         if len(stream) > n + _STORED_OVERHEAD:
             stream = _stored_stream(raw(i), adlers[i])
+        results.append(stream)
+    return results
+
+
+def extra_bits_lut() -> np.ndarray:
+    """(48, 32) float32 token LUT of the deflate assembler
+    (:func:`hopper_deflate.assemble`) that packs byte mode's extra bits: per
+    token index over 768 (rows 0..23 the value ev, rows 24..47 its bit count
+    eb; matches only), the counterpart of rows 48..95 of the TPU's
+    encode_luts_radix."""
+    idx = np.arange(768)
+    take = idx - 253
+    is_match = (idx >= 256) & (idx < NO_TOKEN)
+    code = np.clip(np.searchsorted(LEN_BASE, take, side="right") - 1, 0, 28)
+    ev = np.where(is_match, take - LEN_BASE[code], 0)
+    eb = np.where(is_match, LEN_EXTRA[code], 0)
+    return np.concatenate([ev.reshape(24, 32), eb.reshape(24, 32)]).astype(np.float32)
+
+
+def rans_batch_device(streams, lengths, raw_cb=None) -> list:
+    """Byte-mode scheme-12 encode of a batch of byte streams.
+
+    ``streams`` (B, NPAD) uint8 on the CPU or a CUDA device, ``lengths``
+    (B,) valid bytes.  The deflate tokenizer (tokens, histogram, adler32),
+    the token compaction, the interleaved-rANS encode of the tokens
+    (:func:`hopper_rans.rans_encode_tokens`) and the extra-bits packing
+    (the deflate assembler with :func:`extra_bits_lut`) run where the
+    streams lie; the host quantizes 286 frequencies a stream and builds the
+    headers.  Always 1024 lanes, as the JAX coder: a stream of at least 1024
+    tokens equals ``compress(raw, nways=1024)``; shorter ones, where the host
+    coder narrows its lanes, decode the same.  A coded stream longer than a
+    stored one becomes stored (raw bytes from ``raw_cb(i)`` or read back).
+    Returns B scheme-12 streams.
+    """
+    B = streams.shape[0]
+    if B == 0:
+        return []
+    dev = streams.device
+    lengths = np.asarray(lengths, np.int32)
+    tok, hist, adler = hopper_deflate.tokenize(streams, torch.from_numpy(lengths.copy()).to(dev))
+    hist = hist.cpu().numpy()[:, :N_SYM].astype(np.int64)
+    adlers = adler.cpu().numpy()
+    ms = hist.sum(axis=1)
+    # the rANS kernel codes dense tokens: one capacity, the largest count
+    tok_bound = token_capacity(ms)
+    dense, _, overflow = hopper_deflate.compact_tokens(tok, tok_bound)
+    if bool(overflow.any()):
+        raise RuntimeError("token compaction overflowed its exact bound")
+    freqs, cums = freq_tables(hist, N_SYM)
+    out_bound = 2 * tok_bound + 16        # <= 2 bytes a token
+    body, states, counts = hopper_rans.rans_encode_tokens(
+        dense, *(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (freqs, cums, ms)),
+        out_bound)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    lut = torch.from_numpy(extra_bits_lut()).to(dev).expand(B, 48, 32).contiguous()
+    xbody, xbits, xoverflow = hopper_deflate.assemble(dense, lut, zeros, zeros,
+                                                      (5 * tok_bound + 7) // 8 + 256)
+    counts = counts.cpu().numpy()
+    if (counts > out_bound).any() or bool(xoverflow.any()):
+        raise RuntimeError("rANS body or extra bits exceeded their bounds")
+    bodies = body[:, :int(counts.max())].cpu().numpy()
+    xbytes = (xbits.cpu().numpy().astype(np.int64) + 7) // 8
+    xbodies = xbody[:, :int(xbytes.max())].cpu().numpy()
+    states = states.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    raw = _raw_reader(streams, lengths, raw_cb)
+    results = []
+    for i in range(B):
+        n = int(lengths[i])
+        stream = _finish_stream(n, int(ms[i]), W_LANES, freqs[i, :N_SYM], states[i],
+                                bodies[i, :counts[i]].tobytes(), xbodies[i, :xbytes[i]].tobytes(),
+                                int(adlers[i]))
+        if len(stream) > n + _STORED_OVERHEAD:
+            stream = _stored_stream(raw(i), int(adlers[i]))
         results.append(stream)
     return results
 

@@ -1,14 +1,26 @@
 // Interleaved-rANS encode of symbol streams (scheme 12, symbol and gap
-// modes).
+// modes) and of deflate token streams (byte mode).
 //
 // Replaces pyrecode_tpu/ops/pallas_rans.py:rans_encode_symbols_pallas
 // (kernel built by _build_rans_encode_kernel with direct=True), groups 1
-// and 8, to the contract of codecs/rans.py:rans_encode_interleaved at
+// and 8, and rans_encode_pallas (_build_rans_encode_kernel in byte mode, groups 1),
+// to the contract of codecs/rans.py:rans_encode_interleaved at
 // nways = 1024 * groups: rows of nways symbols are walked from the last;
 // in a row every active lane emits its low byte, then once more, while
 // x >= f << 19, and a row's bytes follow in DESCENDING lane order, low byte
 // first per lane; then x = (x / f << 12) + x % f + cum.  The body comes out
 // in emit order (the decoder reads it backward).
+//
+// Byte mode takes the deflate kernels' inverted tokens (idx = NO_TOKEN -
+// tok): index idx < 256 is literal symbol idx, 256 <= idx < 512 a match of
+// take = idx - 253 and symbol 257 + its length code, as
+// codecs/rans.py:_token_syms_and_extras maps them; any other index (pad)
+// codes as f = 1, cum = 0, as the TPU kernel's LUT gives it.  The block
+// folds that map into its shared tables: entry idx holds the freq and cum
+// of idx's symbol, so a token costs the same one lookup as a symbol.  The
+// threshold f << 19 is unsigned here: at f = 4096 (a one-symbol alphabet)
+// the TPU kernel's int32 wraps and emits two bytes a symbol, where the
+// contract emits none.
 //
 // The TPU kernel fetches f and cum through radix LUT matmuls, divides with
 // an f32-reciprocal digit ladder and scatters bytes with one-hot matmuls,
@@ -29,9 +41,25 @@
 
 namespace {
 
-template <int G>
+constexpr int NO_TOKEN = 512;   // token indices below it: literals and matches
+__constant__ int kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
+                                 31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
+
+// Symbol of token index idx (0 <= idx < 512): the literal, or 257 + the
+// length code of take = idx - 253.
+__device__ int token_symbol(int idx) {
+    if (idx < 256) return idx;
+    const int take = idx - 253;
+    int code = 0;
+    while (code + 1 < 29 && kLenBase[code + 1] <= take) ++code;
+    return 257 + code;
+}
+
+// kTokens: In holds inverted tokens (uint16 or int32) and s_freq / s_cum
+// are indexed by token index; else In is int32 symbols < 4096.
+template <int G, typename In, bool kTokens>
 __global__ void __launch_bounds__(RANS_THREADS)
-rans_encode_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__ freq,
+rans_encode_kernel(const In* __restrict__ values, const int32_t* __restrict__ freq,
                    const int32_t* __restrict__ cum, const int32_t* __restrict__ m_arr,
                    uint8_t* __restrict__ body, int32_t* __restrict__ states,
                    int32_t* __restrict__ counts, int64_t npad, int64_t out_bound) {
@@ -39,17 +67,19 @@ rans_encode_kernel(const int32_t* __restrict__ values, const int32_t* __restrict
     __shared__ uint16_t s_cum[RANS_ALPHABET];
     __shared__ int warp_sums[RANS_WARPS];
     const int64_t b = blockIdx.x;
-    for (int i = threadIdx.x; i < RANS_ALPHABET; i += RANS_THREADS) {
-        const int32_t f = freq[b * RANS_ALPHABET + i];
+    const int entries = kTokens ? NO_TOKEN : RANS_ALPHABET;
+    for (int i = threadIdx.x; i < entries; i += RANS_THREADS) {
+        const int s = kTokens ? token_symbol(i) : i;
+        const int32_t f = freq[b * RANS_ALPHABET + s];
         s_freq[i] = static_cast<uint16_t>(f > 0 ? f : 1);  // a symbol that never occurs
-        s_cum[i] = static_cast<uint16_t>(cum[b * RANS_ALPHABET + i]);
+        s_cum[i] = static_cast<uint16_t>(cum[b * RANS_ALPHABET + s]);
     }
     __syncthreads();
 
     constexpr int64_t NWAYS = static_cast<int64_t>(G) * RANS_THREADS;
     const int base = G * (RANS_THREADS - 1 - static_cast<int>(threadIdx.x));
     const int64_t m = m_arr[b];
-    const int32_t* vals = values + b * npad;
+    const In* vals = values + b * npad;
     uint8_t* out = body + b * out_bound;
     uint32_t x[G];
 #pragma unroll
@@ -63,8 +93,18 @@ rans_encode_kernel(const int32_t* __restrict__ values, const int32_t* __restrict
         for (int k = G - 1; k >= 0; --k) {
             const int64_t idx = row0 + base + k;
             if (idx < m) {
-                const int s = vals[idx] & (RANS_ALPHABET - 1);
-                const uint32_t f = s_freq[s];
+                uint32_t f = 1u, c = 0u;
+                if constexpr (kTokens) {
+                    const int t = NO_TOKEN - static_cast<int>(vals[idx]);
+                    if (t >= 0 && t < NO_TOKEN) {
+                        f = s_freq[t];
+                        c = s_cum[t];
+                    }
+                } else {
+                    const int s = static_cast<int>(vals[idx]) & (RANS_ALPHABET - 1);
+                    f = s_freq[s];
+                    c = s_cum[s];
+                }
                 const uint32_t xmax = f << RANS_XMAX_SHIFT;
                 uint32_t xv = x[k];
                 if (xv >= xmax) {
@@ -75,7 +115,7 @@ rans_encode_kernel(const int32_t* __restrict__ values, const int32_t* __restrict
                         xv >>= 8;
                     }
                 }
-                x[k] = ((xv / f) << RANS_PROB_BITS) + xv % f + s_cum[s];
+                x[k] = ((xv / f) << RANS_PROB_BITS) + xv % f + c;
             }
         }
         int total;
@@ -111,14 +151,42 @@ extern "C" int pr_rans_encode(const void* values, const void* freq, const void* 
     auto* bo = static_cast<uint8_t*>(body);
     auto* st = static_cast<int32_t*>(states);
     auto* cn = static_cast<int32_t*>(counts);
+    const unsigned grid = static_cast<unsigned>(batch);
     if (groups == 8) {
-        rans_encode_kernel<8><<<static_cast<unsigned>(batch), RANS_THREADS, 0, s>>>(
+        rans_encode_kernel<8, int32_t, false><<<grid, RANS_THREADS, 0, s>>>(
             v, f, c, mm, bo, st, cn, npad, out_bound);
     } else if (groups == 1) {
-        rans_encode_kernel<1><<<static_cast<unsigned>(batch), RANS_THREADS, 0, s>>>(
+        rans_encode_kernel<1, int32_t, false><<<grid, RANS_THREADS, 0, s>>>(
             v, f, c, mm, bo, st, cn, npad, out_bound);
     } else {
         return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// tok (batch, npad) inverted deflate tokens, uint16 (tok_is_i32 = 0) or
+// int32, as tokenize / compact_tokens give them; freq and cum (batch, 4096)
+// i32 of the 286-symbol byte-mode alphabet (rest zero); m (batch,) i32
+// tokens to code -> body, states (batch, 1024) and counts as
+// pr_rans_encode at groups 1.  Returns cudaGetLastError().
+extern "C" int pr_rans_encode_tokens(const void* tok, int tok_is_i32, const void* freq,
+                                     const void* cum, const void* m, void* body, void* states,
+                                     void* counts, int64_t batch, int64_t npad,
+                                     int64_t out_bound, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    auto* f = static_cast<const int32_t*>(freq);
+    auto* c = static_cast<const int32_t*>(cum);
+    auto* mm = static_cast<const int32_t*>(m);
+    auto* bo = static_cast<uint8_t*>(body);
+    auto* st = static_cast<int32_t*>(states);
+    auto* cn = static_cast<int32_t*>(counts);
+    const unsigned grid = static_cast<unsigned>(batch);
+    if (tok_is_i32) {
+        rans_encode_kernel<1, int32_t, true><<<grid, RANS_THREADS, 0, s>>>(
+            static_cast<const int32_t*>(tok), f, c, mm, bo, st, cn, npad, out_bound);
+    } else {
+        rans_encode_kernel<1, uint16_t, true><<<grid, RANS_THREADS, 0, s>>>(
+            static_cast<const uint16_t*>(tok), f, c, mm, bo, st, cn, npad, out_bound);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,7 @@ from .hopper_deflate import assemble, compact_tokens, tokenize, tokenize_compact
 from .hopper_encode import encode_l1
 from .hopper_gaps import bitmap_positions
 from .hopper_label import encode_l2l4
-from .hopper_rans import rans_decode, rans_encode, rans_hist
+from .hopper_rans import rans_decode, rans_encode, rans_encode_tokens, rans_hist
 
 __all__ = [
     "EncodeResult", "assemble", "bitmap_positions", "bitpack12", "bitpack_values",
@@ -28,6 +28,6 @@ __all__ = [
     "compact_tokens", "count_foreground", "decode_bitmap_frames", "decode_l1",
     "decode_l1_frames", "encode_frames_auto", "encode_l1", "encode_l2l4", "label_components",
     "pack_bits", "packed_group_shape", "packed_size_bytes", "posdecode", "rans_decode",
-    "rans_encode", "rans_hist", "stream_compact", "tokenize", "tokenize_compact",
+    "rans_encode", "rans_encode_tokens", "rans_hist", "stream_compact", "tokenize", "tokenize_compact",
     "unpack_bits",
 ]

@@ -105,6 +105,8 @@ def load() -> ctypes.CDLL:
                                         p]
             lib.pr_rans_hist.argtypes = [p, p, p, i64, i64, p]
             lib.pr_rans_encode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
+            lib.pr_rans_encode_tokens.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, i64,
+                                                  i64, p]
             lib.pr_rans_decode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
             lib.pr_posdecode.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             lib.pr_label_l2l4.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64,
@@ -113,7 +115,7 @@ def load() -> ctypes.CDLL:
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_encode_l1,
                        lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
                        lib.pr_assemble, lib.pr_rans_hist, lib.pr_rans_encode,
-                       lib.pr_rans_decode, lib.pr_posdecode, lib.pr_label_l2l4,
+                       lib.pr_rans_encode_tokens, lib.pr_rans_decode, lib.pr_posdecode, lib.pr_label_l2l4,
                        lib.pr_bitmap_positions):
                 fn.restype = ctypes.c_int
             for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles):

@@ -8,6 +8,10 @@
   rans_encode_symbols_pallas, groups 1 and 8: the contract of
   codecs/rans.py:rans_encode_interleaved at nways = 1024 * groups.  It takes
   the frequency table and its prefix (``cum``), not the TPU's radix LUT.
+* :func:`rans_encode_tokens` (the same source, token mode) replaces
+  rans_encode_pallas: the byte-mode encode of deflate tokens, the contract
+  of rans_encode_interleaved(_token_syms_and_extras(lut_idx)[0], freq,
+  1024), with the same table layout (the 286-symbol alphabet in front).
 * :func:`rans_decode` (``csrc/rans_decode.cu``) replaces rans_decode_pallas,
   groups 1 and 8: the contract of rans_decode_interleaved.  It takes the
   (3, 4096) slot table of :func:`decode_tables`.
@@ -23,15 +27,20 @@ import numpy as np
 import torch
 
 from . import _launch
+from .hopper_deflate import LEN_BASE, NO_TOKEN
 
 W_LANES = 1024             # interleaved states per group (format log2_nways = 10)
 GROUPS = (1, 8)            # nways 1024 and 8192
 ALPHABET = 4096
 PROB_BITS = 12
 RANS_L = 1 << 23
+# symbol of each token index: literals 0..255, then 257 + the length code of take = idx - 253
+TOKEN_SYMBOL = tuple(range(256)) + tuple(
+    257 + sum(base <= idx - 253 for base in LEN_BASE) - 1 for idx in range(256, NO_TOKEN))
 
 HIST_LAUNCHES = _launch.LaunchCounter()
 ENCODE_LAUNCHES = _launch.LaunchCounter()
+ENCODE_TOKENS_LAUNCHES = _launch.LaunchCounter()
 DECODE_LAUNCHES = _launch.LaunchCounter()
 
 _U32 = 0xFFFFFFFF
@@ -80,33 +89,34 @@ def rans_hist(values: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- encode
 
 
-def _check_encode(values, freq, cum, m, out_bound, groups):
-    _launch.require(values, "values", torch.int32, 2)
+def _check_tables(tok, freq, cum, m, out_bound) -> None:
+    B = tok.shape[0]
     _launch.require(freq, "freq", torch.int32, 2)
     _launch.require(cum, "cum", torch.int32, 2)
-    B = values.shape[0]
     _check_counts(m, B)
     for t, name in ((freq, "freq"), (cum, "cum")):
         if tuple(t.shape) != (B, ALPHABET):
             raise ValueError(f"{name} must be ({B}, {ALPHABET}), got {tuple(t.shape)}")
     if out_bound < 0:
         raise ValueError(f"out_bound must be >= 0, got {out_bound}")
-    if B and int(m.max()) > values.shape[1]:
-        raise ValueError(f"m ({int(m.max())}) exceeds the {values.shape[1]} symbols given")
+    if B and int(m.max()) > tok.shape[1]:
+        raise ValueError(f"m ({int(m.max())}) exceeds the {tok.shape[1]} symbols given")
+
+
+def _check_encode(values, freq, cum, m, out_bound, groups):
+    _launch.require(values, "values", torch.int32, 2)
+    _check_tables(values, freq, cum, m, out_bound)
     return _check_groups(groups)
 
 
-def rans_encode_plain(values, freq, cum, m, out_bound: int, groups: int = 1):
-    """Plain PyTorch version of :func:`rans_encode`, on any device: the rows
-    of codecs/rans.py:rans_encode_interleaved, vectorized over lanes."""
-    nways = _check_encode(values, freq, cum, m, out_bound, groups)
-    B = values.shape[0]
-    dev = values.device
+def _encode_rows(f_pos, c_pos, m, out_bound: int, nways: int):
+    """The rows of codecs/rans.py:rans_encode_interleaved, vectorized over
+    lanes, from each position's frequency and cum (B, N) int64."""
+    B = f_pos.shape[0]
+    dev = f_pos.device
     body = torch.zeros((B, out_bound), dtype=torch.uint8, device=dev)
     states = torch.empty((B, nways), dtype=torch.int32, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
-    f_all = freq.to(torch.int64).clamp(min=1)
-    c_all = cum.to(torch.int64)
     for b in range(B):
         mb = int(m[b])
         x = torch.full((nways,), RANS_L, dtype=torch.int64, device=dev)
@@ -114,8 +124,7 @@ def rans_encode_plain(values, freq, cum, m, out_bound: int, groups: int = 1):
         last = (mb - 1) // nways * nways if mb > 0 else -1
         for row0 in range(last, -1, -nways):
             w = min(nways, mb - row0)
-            s = values[b, row0:row0 + w].to(torch.int64) & (ALPHABET - 1)
-            f, c = f_all[b][s], c_all[b][s]
+            f, c = f_pos[b, row0:row0 + w], c_pos[b, row0:row0 + w]
             xr, xmax = x[:w], f << 19
             e0 = xr >= xmax
             x1 = torch.where(e0, xr >> 8, xr)
@@ -132,6 +141,16 @@ def rans_encode_plain(values, freq, cum, m, out_bound: int, groups: int = 1):
         body[b, :kept.numel()] = kept.to(torch.uint8)
         states[b] = x.to(torch.int32)
     return body, states, counts
+
+
+def rans_encode_plain(values, freq, cum, m, out_bound: int, groups: int = 1):
+    """Plain PyTorch version of :func:`rans_encode`, on any device: the rows
+    of codecs/rans.py:rans_encode_interleaved, vectorized over lanes."""
+    nways = _check_encode(values, freq, cum, m, out_bound, groups)
+    s = values.to(torch.int64) & (ALPHABET - 1)
+    f_pos = torch.gather(freq.to(torch.int64).clamp(min=1), 1, s)
+    c_pos = torch.gather(cum.to(torch.int64), 1, s)
+    return _encode_rows(f_pos, c_pos, m, out_bound, nways)
 
 
 def rans_encode(values: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor, m: torch.Tensor,
@@ -156,6 +175,58 @@ def rans_encode(values: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor, m: 
         _launch.launch(ENCODE_LAUNCHES, "pr_rans_encode", dev, _launch.ptr(values),
                        _launch.ptr(freq), _launch.ptr(cum), _launch.ptr(m), _launch.ptr(body),
                        _launch.ptr(states), _launch.ptr(counts), B, npad, out_bound, groups)
+    return body, states, counts
+
+
+def _check_tokens(tok, freq, cum, m, out_bound):
+    if tok.dtype not in (torch.uint16, torch.int32):
+        raise TypeError(f"tok must be uint16 or int32, got {tok.dtype}")
+    _launch.require(tok, "tok", tok.dtype, 2)
+    _check_tables(tok, freq, cum, m, out_bound)
+
+
+def rans_encode_tokens_plain(tok, freq, cum, m, out_bound: int):
+    """Plain PyTorch version of :func:`rans_encode_tokens`, on any device:
+    each token's symbol as codecs/rans.py:_token_syms_and_extras maps it,
+    then the rows of :func:`rans_encode_plain`."""
+    _check_tokens(tok, freq, cum, m, out_bound)
+    dev = tok.device
+    inv = _launch.u16_to_i32(tok) if tok.dtype == torch.uint16 else tok
+    idx = NO_TOKEN - inv.to(torch.int64)
+    is_tok = (idx >= 0) & (idx < NO_TOKEN)
+    sym = torch.tensor(TOKEN_SYMBOL, dtype=torch.int64, device=dev)[idx.clamp(0, NO_TOKEN - 1)]
+    f_pos = torch.where(is_tok, torch.gather(freq.to(torch.int64).clamp(min=1), 1, sym), 1)
+    c_pos = torch.where(is_tok, torch.gather(cum.to(torch.int64), 1, sym), 0)
+    return _encode_rows(f_pos, c_pos, m, out_bound, W_LANES)
+
+
+def rans_encode_tokens(tok: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,
+                       m: torch.Tensor, out_bound: int):
+    """Byte-mode interleaved-rANS encode of each stream's first m tokens.
+
+    ``tok`` (B, N) uint16 or int32 inverted deflate tokens (index =
+    NO_TOKEN - tok, pad 0), as hopper_deflate.tokenize / compact_tokens
+    give them; index < 256 is literal symbol index, 256 <= index < 512 a
+    match of take index - 253 and symbol 257 + its length code; any other
+    index codes as frequency 1, cum 0.  freq and cum (B, 4096) int32 as
+    :func:`rans_encode` takes them, the 286-symbol alphabet in front; m (B,)
+    int32.  Returns (body (B, out_bound) uint8 in emit order, states (B,
+    1024) int32, counts (B,) int32 body bytes; above ``out_bound`` the body
+    did not fit and bytes past it are dropped).
+    """
+    _check_tokens(tok, freq, cum, m, out_bound)
+    if _launch.on_host(tok, freq, cum, m):
+        return rans_encode_tokens_plain(tok, freq, cum, m, out_bound)
+    B, npad = tok.shape
+    dev = tok.device
+    body = torch.zeros((B, out_bound), dtype=torch.uint8, device=dev)
+    states = torch.empty((B, W_LANES), dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        _launch.launch(ENCODE_TOKENS_LAUNCHES, "pr_rans_encode_tokens", dev, _launch.ptr(tok),
+                       int(tok.dtype == torch.int32), _launch.ptr(freq), _launch.ptr(cum),
+                       _launch.ptr(m), _launch.ptr(body), _launch.ptr(states),
+                       _launch.ptr(counts), B, npad, out_bound)
     return body, states, counts
 
 

@@ -126,6 +126,33 @@ def test_rans_encode_decode_match_twins(cuda, groups):
         assert torch.equal(syms[b, :m[b]].cpu(), torch.from_numpy(vals[b, :m[b]]))
 
 
+def test_rans_encode_tokens_matches_twin(cuda):
+    """#9t: tokens of byte streams (compacted int32 and uint16), an edge
+    battery (empty, one token, literals only, every length code, a
+    one-symbol alphabet, pad and out-of-range tokens), and a body bound that
+    cuts; the CUDA path launches the kernel, not the twin."""
+    from chip_smoke import token_battery, token_tables
+
+    raws, streams, lengths = _streams()
+    s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
+    tok, hist, _ = hopper_deflate.tokenize(s, n)
+    m = hist[:, :286].sum(dim=1, dtype=torch.int32)
+    dense = hopper_deflate.compact_tokens(tok, int(m.max()))[0]
+    edge, m_edge = token_battery(np.random.default_rng(21))
+    cases = [(dense, m), (dense.to(torch.int16).view(torch.uint16), m),
+             (torch.from_numpy(edge).to(cuda), torch.from_numpy(m_edge).to(cuda))]
+    for t, k in cases:
+        freq, cum = token_tables(t.cpu().numpy(), k.cpu().numpy())
+        tables = [torch.from_numpy(a).to(cuda) for a in (freq, cum)]
+        for out_bound in (2 * t.shape[1] + 16, 100):   # fits; cuts
+            before = hopper_rans.ENCODE_TOKENS_LAUNCHES.value
+            got = hopper_rans.rans_encode_tokens(t, *tables, k, out_bound)
+            assert hopper_rans.ENCODE_TOKENS_LAUNCHES.value == before + 1
+            _equal(got, hopper_rans.rans_encode_tokens_plain(t, *tables, k, out_bound))
+    assert rans.rans_batch_device(s, lengths) == \
+        rans.rans_batch_device(torch.from_numpy(streams), lengths)
+
+
 def test_posdecode_matches_twin(cuda):
     rng = np.random.default_rng(20)
     H, W = 96, 160
