@@ -48,11 +48,22 @@ Phases (each raises on failure; nothing is caught):
    merge), then two gloo ranks started with the spawn method, each encoding
    its half of the frames on the card, whose gathered blocks must equal one
    process's; every kernel of the path launched by the path's own steps
-   (the dryruns count them without the references they are checked against).
+   (the dryruns count them without the references they are checked against);
+9. the alternates path (the JAX package's byte-identical alternatives of
+   production kernels) on the 16 L1 frames of phase 4 and the 16 puddle
+   frames of phase 7, in batches of 4: encode_l1(pairs_out=) -> the values
+   packed as words by bitpack12_words (whose bytes must equal bitpack12's) ->
+   the bitmaps tokenized from their nonzero-byte pairs by tokens_from_pairs
+   (a frame it flags goes through tokenize_compact) -> host tables ->
+   assemble_split, and the values through deflate_batch_device(
+   split_assemble=True); every stream equal to native.deflate_sparse and to
+   the default path's, each of the four kernels launched, and the path's
+   wall beside the default path's.
 
 Phase 3 also holds the label kernel (all five L2/L4 modes) and the bitmap
 -> positions kernel against their twins on a batch of puddle frames, its
-bitmaps and statistics streams, and an edge battery.
+bitmaps and statistics streams, and an edge battery, and the four kernels
+of phase 9 on the slice batch and their own edge batteries.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -77,7 +88,8 @@ from pyrecode_tpu_torch.codecs import dyndeflate, rans
 from pyrecode_tpu_torch.codecs.dyndeflate import quantize_bound
 from pyrecode_tpu_torch.constants import rc_cfg as rc
 from pyrecode_tpu_torch.ops import (_build, _launch, hopper_bitpack, hopper_decode, hopper_deflate,
-                                    hopper_encode, hopper_gaps, hopper_label, hopper_rans)
+                                    hopper_encode, hopper_gaps, hopper_label, hopper_rans,
+                                    hopper_tokens)
 from pyrecode_tpu_torch.ops.bitpack import bitpack_values, unpack_bits
 from pyrecode_tpu_torch.ops.encode import count_foreground, encode_frames_auto
 from pyrecode_tpu_torch.writer import _bucket_for
@@ -108,6 +120,14 @@ KERNELS = {
     "label_l2l4": ("pyrecode_tpu_torch/csrc/label_l2l4.cu", "pyrecode_tpu/ops/pallas_label.py:459"),
     "bitmap_positions": ("pyrecode_tpu_torch/csrc/bitmap_positions.cu",
                          "pyrecode_tpu/ops/pallas_gaps.py:119"),
+    "encode_l1_pairs": ("pyrecode_tpu_torch/csrc/encode_l1.cu",
+                        "pyrecode_tpu/ops/pallas_encode.py:760 (pairs_out)"),
+    "tokens_from_pairs": ("pyrecode_tpu_torch/csrc/tokens_from_pairs.cu",
+                          "pyrecode_tpu/ops/pallas_tokens.py:287"),
+    "assemble_split": ("pyrecode_tpu_torch/csrc/assemble.cu",
+                       "pyrecode_tpu/ops/pallas_deflate.py:926"),
+    "bitpack12_words": ("pyrecode_tpu_torch/csrc/bitpack12.cu",
+                        "pyrecode_tpu/ops/pallas_bitpack.py:78"),
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
 # the kernels each slice's main path must launch
@@ -117,8 +137,10 @@ SCHEME12_KERNELS = ("encode_l1", "encode_l1_positions", "bitpack12", "rans_hist"
                     "bitunpack12", "rans_decode", "posdecode", "decode_l1")
 MULTIDEVICE_KERNELS = ("encode_l1", "bitpack12", "label_l2l4", "tokenize", "assemble",
                        "rans_encode_tokens", "rans_decode", "bitunpack12", "decode_l1")
+ALTERNATES_KERNELS = ("encode_l1_pairs", "bitpack12_words", "tokens_from_pairs", "assemble_split")
 MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
 RANK_TIMEOUT_S = 300.0    # phase 8 (b): a rank that runs longer fails the script
+ALT_BATCH = 4             # phase 9: frames a batch
 # (level, L2 statistic or L4 scheme, compression scheme) -> the kernels of that slice
 LEVEL_SLICES = {
     (2, "sum", 12): ("label_l2l4", "bitpack12", "bitmap_positions", "rans_hist", "rans_encode",
@@ -298,7 +320,7 @@ def measure(entry, err: int, reps: int, plain_reps: int) -> dict:
     """CUDA-event times of a kernel, its twin and the library call (if any),
     and the kernel's bound: the bytes it must move over the card's memory
     rate (every kernel here does a few integer operations per byte)."""
-    kernel, plain, nbytes, library = entry
+    kernel, plain, nbytes, library = entry[:4]
     return {"max_abs_err": err, "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, plain_reps),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": cuda_ms(library, reps) if library is not None else None}
@@ -748,6 +770,113 @@ def check_label(device, rng, check, n_frames: int, height: int, width: int):
     return timed, modes
 
 
+def pairs_token_bound(pair_counts, n: int) -> int:
+    """A token capacity no frame of n bitmap bytes with these pair counts
+    can exceed: an element (a pair, or the tail sentinel) emits at most 4
+    tokens beside one match per 258 bytes of its gap."""
+    return quantize_bound(4 * (int(pair_counts.max()) + 1) + n // 258, hopper_deflate.TILE)
+
+
+def check_alternates(device, rng, check, frames, thr, out_size, enc_cases, bitmap, comp, packed,
+                     plens):
+    """Phase 3, the alternates: encode_l1(pairs_out=), tokens_from_pairs,
+    assemble_split and bitpack12_words against their twins on the slice
+    batch and edge batteries; tokens_from_pairs also against tokenize_compact
+    on the slice's bitmaps, and assemble_split against assemble.  Returns
+    timing entries of the four at the main path's inputs."""
+    for what, f, t, size, with_values in enc_cases:
+        # pairs_out that fits, and one below the slice's pair counts
+        for po in (size, size // 2) if with_values else (out_size,):
+            got = hopper_encode.encode_l1(f, t, size, with_values, pairs_out=po)
+            check("encode_l1_pairs", got,
+                  hopper_encode.encode_l1_plain(f, t, size, with_values, pairs_out=po),
+                  f"{what}, pairs_out {po}")
+            values_over = got[2] > size if with_values else torch.zeros_like(got[3])
+            expect(torch.equal(got[3], (got[5] > po) | values_over),
+                   f"encode_l1_pairs overflow flags on {what}, pairs_out {po}")
+    enc = hopper_encode.encode_l1(frames, thr, out_size, pairs_out=out_size)
+    expect(not bool(enc[3].any()), "encode_l1_pairs: unexpected overflow on the slice")
+    expect(torch.equal(enc[0], bitmap) and torch.equal(enc[1], comp),
+           "encode_l1 with pairs differs from encode_l1 without")
+    pairs, pcounts = enc[4], enc[5]
+    B, n = bitmap.shape
+    bound = pairs_token_bound(pcounts, n)
+    tfp = hopper_tokens.tokens_from_pairs(pairs, pcounts, n, bound)
+    check("tokens_from_pairs", tfp, hopper_tokens.tokens_from_pairs_plain(pairs, pcounts, n, bound),
+          "slice bitmaps' pairs")
+    full = torch.full((B,), n, dtype=torch.int32, device=device)
+    ref = hopper_deflate.tokenize_compact(bitmap, full, bound)
+    expect(not bool(tfp[3].any()), "tokens_from_pairs flagged a slice frame")
+    expect(torch.equal(tfp[0], ref[0]) and torch.equal(tfp[2], ref[3])
+           and torch.equal(tfp[1][:, :286], ref[1][:, :286]) and torch.equal(tfp[4], ref[2]),
+           "tokens_from_pairs differs from tokenize_compact on the slice bitmaps")
+    print(f"  tokens_from_pairs equals tokenize_compact on the slice bitmaps "
+          f"({int(tfp[2].sum())} tokens from {int(pcounts.sum())} pairs)")
+    # an all-zero row (the sentinel alone), a gap over 1549 bytes, a nonzero
+    # run of 4 (flagged), then a bound below the counts
+    m = 60000
+    rows = (rng.integers(1, 256, (5, m)) * (rng.random((5, m)) < 0.02)).astype(np.uint8)
+    rows[1] = 0
+    rows[2, 100:40000] = 0
+    rows[3, 500:504] = 9
+    e_pairs, e_counts = hopper_encode.bitmap_pairs(torch.from_numpy(rows).to(device), m)
+    e_full = hopper_tokens.tokens_from_pairs_plain(e_pairs, e_counts, m, 4 * m)[2]
+    for b in (int(e_full.max()), int(e_full.min()) // 2):
+        got = hopper_tokens.tokens_from_pairs(e_pairs, e_counts, m, b)
+        check("tokens_from_pairs", got,
+              hopper_tokens.tokens_from_pairs_plain(e_pairs, e_counts, m, b),
+              f"edge battery, tok_bound {b}")
+        expect(got[3].tolist() == [False, False, False, True, False],
+               f"tokens_from_pairs flags {got[3].tolist()}")
+        expect(torch.equal(got[2], e_full), "tokens_from_pairs counts are not exact")
+
+    timed = {}
+    for what, streams, lengths in (("slice bitmaps", bitmap, full), ("slice values", packed, plens)):
+        tok, hist, _ = hopper_deflate.tokenize(streams, lengths)
+        n_tok = int(hist[:, :286].sum(dim=1).max())
+        comp_tok = hopper_deflate.tokenize_compact(streams, lengths, n_tok)[0]
+        tables = host_tables(hist, device)
+        out_bound = 2 * streams.shape[1] + 256
+        for kind, t in (("u16", tok), ("i32 compacted", comp_tok)):
+            for ob in (out_bound, 300):
+                got = hopper_deflate.assemble_split(t, *tables, ob)
+                check("assemble_split", got, hopper_deflate.assemble_plain(t, *tables, ob),
+                      f"{what}, {kind} tokens, out_bound {ob}")
+                expect(max_abs_err(got, hopper_deflate.assemble(t, *tables, ob)) == 0,
+                       f"assemble_split differs from assemble on {what}, {kind} tokens")
+        if what == "slice bitmaps":
+            timed["assemble_split"] = (
+                lambda t=comp_tok, a=tables, o=out_bound: hopper_deflate.assemble_split(t, *a, o),
+                lambda t=comp_tok, a=tables, o=out_bound: hopper_deflate.assemble_plain(t, *a, o),
+                io_bytes(comp_tok, tables, hopper_deflate.assemble_split(comp_tok, *tables,
+                                                                         out_bound)), None)
+
+    words = hopper_bitpack.bitpack12_words(comp)
+    check("bitpack12_words", [words], [hopper_bitpack.bitpack12_words_plain(comp)], "slice values")
+    expect(torch.equal(words.view(torch.uint8), packed), "bitpack12_words bytes differ from bitpack12's")
+    wide = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 1000008)).astype(np.int32)).to(device)
+    check("bitpack12_words", [hopper_bitpack.bitpack12_words(wide)],
+          [hopper_bitpack.bitpack12_words_plain(wide)], "random int32, n = 1000008")
+
+    # no PyTorch call computes these functions; the pairs tokenizer reads the
+    # valid pairs and writes its outputs
+    timed.update({
+        "encode_l1_pairs": (
+            lambda: hopper_encode.encode_l1(frames, thr, out_size, pairs_out=out_size),
+            lambda: hopper_encode.encode_l1_plain(frames, thr, out_size, pairs_out=out_size),
+            io_bytes(frames, thr, enc), None),
+        "tokens_from_pairs": (
+            lambda: hopper_tokens.tokens_from_pairs(pairs, pcounts, n, bound),
+            lambda: hopper_tokens.tokens_from_pairs_plain(pairs, pcounts, n, bound),
+            4 * int(pcounts.sum()) + io_bytes(pcounts, tfp), None,
+            lambda: hopper_tokens.adler_from_pairs(pairs, pcounts, n)),
+        "bitpack12_words": (lambda: hopper_bitpack.bitpack12_words(comp),
+                            lambda: hopper_bitpack.bitpack12_words_plain(comp),
+                            io_bytes(comp, words), None),
+    })
+    return timed
+
+
 def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, plain_reps=3):
     """Phase 3: every kernel against its twin (exactly) on edge cases and at
     the slice's shapes; returns {name: {max_abs_err, ms, plain_ms}}."""
@@ -846,6 +975,8 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     rans_timed = check_rans(device, rng, check, frames, thr, out_size, packed)
     tokens_timed = check_rans_tokens(device, rng, check, bitmap)
     label_timed, label_modes = check_label(device, rng, check, n_frames, height, width)
+    alt_timed = check_alternates(device, rng, check, frames, thr, out_size, enc_cases, bitmap,
+                                 comp, packed, plens)
 
     if device.type != "cuda":
         return {name: {"max_abs_err": e} for name, e in err.items()}
@@ -903,6 +1034,14 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
         report(name, "puddle frames" if name == "label_l2l4" else "bitmaps")
     out["label_l2l4"]["mode_ms"] = {m: cuda_ms(fn, reps) for m, fn in label_modes.items()}
     print(f"  label_l2l4       kernel ms by mode: {out['label_l2l4']['mode_ms']}")
+    for name, entry in alt_timed.items():
+        out[name] = measure(entry, err[name], reps, plain_reps)
+        report(name, "slice bitmaps" if name in ("tokens_from_pairs", "assemble_split") else
+               "frames" if name == "encode_l1_pairs" else "slice values")
+    # the wrapper's adler32 (torch reductions over the pairs) alone
+    out["tokens_from_pairs"]["adler_ms"] = cuda_ms(alt_timed["tokens_from_pairs"][4], reps)
+    print(f"  tokens_from_pairs of which adler32 (torch ops): "
+          f"{out['tokens_from_pairs']['adler_ms']:.4f} ms")
     return out
 
 
@@ -1273,6 +1412,96 @@ def run_multidevice(device, data, thr, puddles, pthr, work_dir: Path):
     return dict(launches), walls, ranks_s
 
 
+def run_alternates(device, data, dark, puddles, pdark) -> dict:
+    """Phase 9: the alternates path on ``data`` and ``puddles`` (L1, threshold
+    dark + EPSILON), ALT_BATCH frames at a time: encode_l1(pairs_out=), the
+    values packed by bitpack12_words, the bitmaps tokenized from their pairs
+    (flagged frames by tokenize_compact) and assembled by assemble_split
+    (``_tables_assemble_finish(split_assemble=True)``), the values deflated
+    by ``deflate_batch_device(split_assemble=True)``.  Then the default path
+    (encode_l1, bitpack12, deflate_batch_device) on the same frames; every
+    stream of both equal to native.deflate_sparse of its raw stream.
+    Returns the launches of the alternates path alone, the flagged frames,
+    the streams compared and both walls."""
+    sets = [(data, dark), (puddles, pdark)]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def batches():
+        for frames_np, dark_np in sets:
+            thr = torch.from_numpy((dark_np + EPSILON).astype(np.uint16)).to(device)
+            for start in range(0, frames_np.shape[0], ALT_BATCH):
+                frames = torch.from_numpy(frames_np[start:start + ALT_BATCH]).to(device)
+                size = _bucket_for(int(count_foreground(frames, thr).max()),
+                                   frames.shape[1] * frames.shape[2])
+                yield frames, thr, -(-size // 8) * 8       # whole 8-value word groups
+
+    port.reset_kernel_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    alt, raws, flagged = [], [], 0
+    for frames, thr, size in batches():
+        bitmap, comp, counts, overflow, pairs, pcounts = hopper_encode.encode_l1(
+            frames, thr, size, pairs_out=size)
+        expect(not bool(overflow.any()), "phase 9: encode overflow")
+        words = hopper_bitpack.bitpack12_words(comp)
+        B, n = bitmap.shape
+        bound = pairs_token_bound(pcounts, n)
+        tok, hist, tcounts, flag, adler = hopper_tokens.tokens_from_pairs(pairs, pcounts, n, bound)
+        expect(bool((tcounts <= bound).all()), "phase 9: tokens over their bound")
+        lengths = np.full(B, n, np.int32)
+        if bool(flag.any()):
+            rows = torch.nonzero(flag).flatten()
+            comp_b, hist_b, adler_b, _, over_b = hopper_deflate.tokenize_compact(
+                bitmap[rows].contiguous(), torch.from_numpy(lengths[:len(rows)]).to(device), bound)
+            expect(not bool(over_b.any()), "phase 9: byte tokens over the pairs' bound")
+            tok[rows], hist[rows], adler[rows] = comp_b, hist_b, adler_b
+            flagged += len(rows)
+        plens = ((counts.to(torch.int64) * 12 + 7) // 8).cpu().numpy()
+        out_bound = min(2 * n, (bound * hopper_deflate.MAX_TOKEN_BITS + 7) // 8) + 256
+        streams = dyndeflate._tables_assemble_finish(
+            tok, out_bound, hist.cpu().numpy(), adler.cpu().numpy(), lengths, None, bitmap,
+            split_assemble=True)
+        streams += dyndeflate.deflate_batch_device(words.view(torch.uint8), plens,
+                                                   split_assemble=True)
+        alt.append(streams)
+        raws.append((bitmap, words.view(torch.uint8), plens, comp))
+    sync()
+    alt_s = time.perf_counter() - t0
+    launches = port.kernel_launch_counts()
+
+    sync()
+    t0 = time.perf_counter()
+    default = []
+    for frames, thr, size in batches():
+        bitmap, comp, counts, _ = hopper_encode.encode_l1(frames, thr, size)
+        packed = hopper_bitpack.bitpack12(comp)
+        plens = ((counts.to(torch.int64) * 12 + 7) // 8).cpu().numpy()
+        default.append(dyndeflate.deflate_batch_device(bitmap, np.full(bitmap.shape[0], bitmap.shape[1]))
+                       + dyndeflate.deflate_batch_device(packed, plens))
+    sync()
+    default_s = time.perf_counter() - t0
+
+    n_streams = 0
+    for streams, ref, (bitmap, wbytes, plens, comp) in zip(alt, default, raws):
+        expect(streams == ref, "phase 9: the alternates path's streams differ from the default's")
+        expect(torch.equal(wbytes, hopper_bitpack.bitpack12(comp)),
+               "phase 9: bitpack12_words bytes differ from bitpack12's")
+        host_bm, host_w = bitmap.cpu().numpy(), wbytes.cpu().numpy()
+        raw = [row.tobytes() for row in host_bm] + \
+            [row[:k].tobytes() for row, k in zip(host_w, plens)]
+        for i, (stream, r) in enumerate(zip(streams, raw)):
+            expect(stream == native.deflate_sparse(r),
+                   f"phase 9: stream {i} differs from native.deflate_sparse")
+        n_streams += len(streams)
+    n_frames = sum(f.shape[0] for f, _ in sets)
+    expect(flagged < n_frames, f"phase 9: tokens_from_pairs flagged {flagged} of {n_frames} frames")
+    print(f"alternates path: {n_frames} frames, {n_streams} streams equal native.deflate_sparse "
+          f"and the default path's; bitpack12_words bytes equal bitpack12's; {flagged} of "
+          f"{n_frames} frames flagged by tokens_from_pairs (taken by tokenize_compact)")
+    return {"launches": launches, "flagged": flagged, "streams": n_streams, "alt_s": alt_s,
+            "default_s": default_s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU")
@@ -1334,6 +1563,13 @@ def main() -> None:
         missing = [name for name in MULTIDEVICE_KERNELS if counts[name] == 0]
         if missing:
             raise AssertionError(f"kernels not launched by the multi-device path: {missing}")
+
+        alternates = run_alternates(device, data, dark, puddles, pdark)
+        launches["alternates"] = alternates["launches"]
+        print(f"launches in the alternates path: {alternates['launches']}")
+        missing = [name for name in ALTERNATES_KERNELS if alternates["launches"][name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the alternates path: {missing}")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     raw = data.nbytes
@@ -1347,6 +1583,9 @@ def main() -> None:
         print(f"multi-device {mesh_shape} mesh of {device} (8 frames): "
               + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items()) + f" [{gpu}]")
     print(f"multi-device, {MD_WORLD} gloo ranks, spawn to exit: {ranks_s:.3f} s [{gpu}]")
+    print(f"alternates path (phase 9, 32 frames, encode to zlib streams): "
+          f"{alternates['alt_s']:.3f} s; default path on the same frames: "
+          f"{alternates['default_s']:.3f} s [{gpu}]")
     for what, seconds in (("L1 scheme 0", entropy_s), ("L4 weighted_average scheme 0",
                                                        entropy_l4)):
         for device_entropy, name in ((True, "device"), (False, "host")):
@@ -1361,6 +1600,7 @@ def main() -> None:
                "launches_by_path": by_path, **kernel_stats[name]}
         if name == "encode_l1":
             row["positions_launches"] = sum(c["encode_l1_positions"] for c in launches.values())
+            row["pairs_launches"] = sum(c["encode_l1_pairs"] for c in launches.values())
         kernels.append(row)
     print(gpu)
     print(json.dumps({"kernels": kernels}))

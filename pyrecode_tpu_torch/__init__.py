@@ -10,7 +10,9 @@ scheme 0 (dynamic deflate) or 12 (interleaved rANS).  Hand-written CUDA
 kernels for ``sm_90a`` (``csrc/``) carry the device work: the fused L1/L3
 encode (with the values' pixel positions for scheme 12), the fused L2/L4
 label encode (puddle statistics, centroids), the 12-bit pack and unpack,
-the deflate tokenizer and bit assembler, the bitmap -> positions extraction,
+the deflate tokenizer (from bytes, and from the bitmap's nonzero-byte
+pairs) and bit assembler (one-pass and split), the bitmap -> positions
+extraction,
 the rANS histogram, encode (of symbols, and of deflate tokens for the
 byte-mode coder) and decode, the L1 decode and the positions decode.
 :mod:`pyrecode_tpu_torch.parallel` spreads the encode over a mesh of
@@ -28,7 +30,7 @@ device by default (``device_entropy``), as the JAX writer does on a TPU.
 """
 
 from .ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode, hopper_gaps,
-                  hopper_label, hopper_rans)
+                  hopper_label, hopper_rans, hopper_tokens)
 from .params import InitParams, InputParams
 from .reader import ReCoDeReader, merge_parts
 from .server import ReCoDeServer
@@ -61,12 +63,17 @@ _COUNTERS = {
     "bitunpack12": hopper_bitpack.UNPACK_LAUNCHES,
     "decode_l1": hopper_decode.LAUNCHES,
     "posdecode": hopper_decode.POSDECODE_LAUNCHES,
+    "encode_l1_pairs": hopper_encode.PAIRS_LAUNCHES,
+    "tokens_from_pairs": hopper_tokens.LAUNCHES,
+    "assemble_split": hopper_deflate.ASSEMBLE_SPLIT_LAUNCHES,
+    "bitpack12_words": hopper_bitpack.WORDS_LAUNCHES,
 }
 
 
 def kernel_launch_counts() -> dict:
     """Launches of each kernel wrapper since the last reset
-    (``encode_l1_positions``: those of the encode that stored positions)."""
+    (``encode_l1_positions`` and ``encode_l1_pairs``: those of the encode
+    that stored positions or bitmap-byte pairs)."""
     return {name: counter.value for name, counter in _COUNTERS.items()}
 
 

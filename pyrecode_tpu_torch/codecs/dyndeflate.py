@@ -1,8 +1,10 @@
 """Scheme-0 dynamic deflate: the host helpers and the device entropy stage.
 
 The port's own copy of the numpy half of pyrecode_tpu/codecs/dyndeflate.py
-(the per-byte tokenizer reference, the length-code tables, and the stream
-finishing: end-of-block splice, stored-block fallback, adler trailer), and
+(the per-byte tokenizer reference, the pairs tokenizer reference
+``tokens_from_pairs_np`` with its closed-form gap schedule, the length-code
+tables, and the stream finishing: end-of-block splice, stored-block
+fallback, adler trailer), and
 the port of its device half (``deflate_batch_device``,
 ``_tables_assemble_finish``) on torch tensors.  Tokens, histograms, adler32
 and the bit assembly run on the streams' device (:mod:`..ops.hopper_deflate`);
@@ -12,7 +14,8 @@ byte-identical to ``native.deflate_sparse``.
 
 Against the JAX version: no ``interpret`` (a CPU tensor runs the kernels'
 twins), no ``compact`` switch (compaction is chosen as the JAX default
-chooses it), no environment switches, one token capacity instead of the
+chooses it), no environment switches (``split_assemble=True`` takes the
+place of ``PYRECODE_SPLIT_ASSEMBLE=1``), one token capacity instead of the
 TPU's capacity buckets, and one read of all bodies instead of one per
 stream.  The native host library is required: without it the JAX
 version's three-step table path fails too (``native.dyn_tables`` raises).
@@ -107,6 +110,98 @@ def tokenize_bytes_np(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return lut_idx, sym
 
 
+def histogram_np(sym: np.ndarray) -> np.ndarray:
+    """286-symbol literal/length frequency table (EOB included)."""
+    freq = np.bincount(sym[sym >= 0], minlength=286).astype(np.uint32)
+    freq[256] += 1  # end of block
+    return freq
+
+
+def gap_token_count(G: np.ndarray) -> np.ndarray:
+    """Number of tokens coding a maximal zero-run of ``G`` bytes.
+
+    Closed form of the per-byte rules above evaluated over one run:
+    G <= 3 -> G literals; G >= 4 -> 1 leading literal + j258 take-258
+    matches + (2 if the remainder is 259/260 — a 255-take then its 4/5
+    tail — else 1) final matches.
+    """
+    G = np.asarray(G, dtype=np.int64)
+    j258 = np.maximum(0, (G - 262) // 258 + 1)
+    rem_after = G - 1 - 258 * j258
+    tail = np.where(rem_after >= 259, 2, 1)
+    return np.where(G <= 3, G, 1 + j258 + tail).astype(np.int64)
+
+
+def gap_token_value(G: np.ndarray, j: np.ndarray) -> np.ndarray:
+    """LUT index of the ``j``-th token (0-based) of a ``G``-byte zero run.
+
+    j == 0 (or any j < G for G <= 3) -> literal 0; otherwise match take
+    per the run schedule: 258-takes, then 255 + its 4/5 tail, or the
+    direct final take.  Callers guarantee 0 <= j < gap_token_count(G).
+    """
+    G = np.asarray(G, dtype=np.int64)
+    j = np.asarray(j, dtype=np.int64)
+    j258 = np.maximum(0, (G - 262) // 258 + 1)
+    rem_after = G - 1 - 258 * j258
+    # match ordinal (1-based): j itself (slot 0 is the leading literal)
+    take = np.where(j <= j258, 258,
+                    np.where(rem_after >= 259,
+                             np.where(j == j258 + 1, 255, rem_after - 255),
+                             rem_after))
+    lut = np.where((G <= 3) | (j == 0), 0, 256 + take - 3)
+    return lut.astype(np.int32)
+
+
+def tokens_from_pairs_np(idx: np.ndarray, val: np.ndarray, n: int
+                         ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Dense deflate token stream straight from (byte index, byte value)
+    pairs of the NONZERO bitmap bytes — the numpy reference for the
+    positions-driven device tokenizer (no 2 MB byte scan; work scales with
+    foreground bytes, 12x fewer at 1% occupancy).
+
+    ``idx`` strictly ascending nonzero-byte indices, ``val`` their values
+    (> 0), ``n`` total bitmap bytes.  Returns (lut_idx, sym) dense token
+    arrays identical to compacting :func:`tokenize_bytes_np`'s per-byte
+    output, or ``None`` when a nonzero run of length >= 4 exists (equal
+    values at >= 4 consecutive indices — those runs emit matches, which
+    this per-isolated-byte formulation does not model; callers fall back
+    to the byte tokenizer.  Nonzero runs of length <= 3 are all literals
+    under the run < 4 rule, so they need no special casing).
+    """
+    idx = np.asarray(idx, dtype=np.int64)
+    val = np.asarray(val, dtype=np.int64)
+    if idx.size >= 4:
+        # a nonzero run of length >= 4 <=> 3 consecutive "continues the
+        # run" flags somewhere
+        run = (idx[1:] == idx[:-1] + 1) & (val[1:] == val[:-1])
+        if np.any(run[2:] & run[1:-1] & run[:-2]):
+            return None
+    # element list: each nonzero byte preceded by its zero gap, plus one
+    # sentinel element for the tail gap (no literal of its own)
+    gaps = np.diff(np.concatenate(([-1], idx, [n]))) - 1  # per element + tail
+    gap_counts = gap_token_count(gaps)
+    t = gap_counts + 1
+    t[-1] -= 1                                  # sentinel: gap tokens only
+    offs = np.concatenate(([0], np.cumsum(t)))
+    total = int(offs[-1])
+    lut_idx = np.zeros(total, dtype=np.int32)
+    sym = np.zeros(total, dtype=np.int32)
+    for i in range(gaps.size):
+        G = int(gaps[i])
+        o = int(offs[i])
+        tc = int(gap_counts[i])
+        if tc:
+            jj = np.arange(tc)
+            lv = gap_token_value(G, jj)
+            lut_idx[o: o + tc] = lv
+            sym[o: o + tc] = np.where(
+                lv < 256, lv, 257 + length_code(lv - 256 + 3))
+        if i < idx.size:
+            lut_idx[o + tc] = val[i]
+            sym[o + tc] = val[i]
+    return lut_idx, sym
+
+
 def quantize_bound(n: int, ch: int) -> int:
     """Round ``n`` up to the next quarter-octave grid point that is a
     multiple of ``ch`` ({1, 1.25, 1.5, 1.75} x 2^k): token and output
@@ -169,7 +264,8 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def deflate_batch_device(streams: torch.Tensor, lengths, raw_cb=None, hint_state=None):
+def deflate_batch_device(streams: torch.Tensor, lengths, raw_cb=None, hint_state=None,
+                         split_assemble: bool = False):
     """Deflate a batch of byte streams on their device; returns B zlib streams.
 
     ``streams`` (B, NPAD) uint8 on the CPU or a CUDA device; ``lengths``
@@ -184,6 +280,10 @@ def deflate_batch_device(streams: torch.Tensor, lengths, raw_cb=None, hint_state
     dense tokens).  A token bound that proves too small is retried with the
     exact bound from the histogram: the hint is a speed heuristic, never an
     input to the bytes.
+
+    ``split_assemble`` takes the split bit assembly
+    (:func:`..ops.hopper_deflate.assemble_split`) in place of the one-pass
+    one; the streams are the same.
     """
     B, npad = streams.shape
     if B == 0:
@@ -234,7 +334,8 @@ def deflate_batch_device(streams: torch.Tensor, lengths, raw_cb=None, hint_state
     if hint_state is not None:
         hint_state["density"] = float((tok_counts / np.maximum(lengths.astype(np.int64), 1)).max())
 
-    return _tables_assemble_finish(tok, out_bound, hist_np, adler_np, lengths, raw_cb, streams)
+    return _tables_assemble_finish(tok, out_bound, hist_np, adler_np, lengths, raw_cb, streams,
+                                   split_assemble)
 
 
 class HostTables(NamedTuple):
@@ -270,10 +371,12 @@ def host_tables(hist_np: np.ndarray) -> HostTables:
     return HostTables(luts, phases, partials, headers, eobs, body_bits)
 
 
-def _tables_assemble_finish(tok, out_bound, hist_np, adler_np, lengths, raw_cb, streams):
+def _tables_assemble_finish(tok, out_bound, hist_np, adler_np, lengths, raw_cb, streams,
+                            split_assemble: bool = False):
     """Host Huffman tables and headers, the early all-stored exit, the bit
-    assembly on the device, then the end-of-block splice, the per-stream
-    stored fallback and the adler trailer on the host."""
+    assembly on the device (the split form with ``split_assemble``), then
+    the end-of-block splice, the per-stream stored fallback and the adler
+    trailer on the host."""
     B = int(hist_np.shape[0])
     t = host_tables(hist_np)
 
@@ -294,7 +397,8 @@ def _tables_assemble_finish(tok, out_bound, hist_np, adler_np, lengths, raw_cb, 
                 for i in range(B)]
 
     dev = tok.device
-    body, totbits, overflow = hd.assemble(
+    assemble = hd.assemble_split if split_assemble else hd.assemble
+    body, totbits, overflow = assemble(
         tok, *(torch.from_numpy(a).to(dev) for a in (t.luts, t.phases, t.partials)), out_bound)
     totbits_np, overflow_np = _to_host(totbits), _to_host(overflow)
     if overflow_np.any():

@@ -96,8 +96,9 @@ def load() -> ctypes.CDLL:
             p, i64 = ctypes.c_void_p, ctypes.c_int64
             lib.pr_bitpack12.argtypes = [p, p, i64, p]
             lib.pr_bitunpack12.argtypes = [p, p, i64, p]
+            lib.pr_bitpack12_words.argtypes = [p, p, i64, p]
             lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64, i64,
-                                         ctypes.c_int, p]
+                                         ctypes.c_int, p, p, p, p, i64, p]
             lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_tokenize.argtypes = [p, p, p, p, p, p, p, i64, i64, p]
             lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
@@ -112,15 +113,20 @@ def load() -> ctypes.CDLL:
             lib.pr_label_l2l4.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64,
                                           i64, i64, i64, p]
             lib.pr_bitmap_positions.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
-            for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_encode_l1,
+            lib.pr_tokens_from_pairs.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
+            lib.pr_assemble_split.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, p, i64,
+                                              i64, i64, p]
+            for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_bitpack12_words, lib.pr_encode_l1,
                        lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
                        lib.pr_assemble, lib.pr_rans_hist, lib.pr_rans_encode,
                        lib.pr_rans_encode_tokens, lib.pr_rans_decode, lib.pr_posdecode, lib.pr_label_l2l4,
-                       lib.pr_bitmap_positions):
+                       lib.pr_bitmap_positions, lib.pr_tokens_from_pairs, lib.pr_assemble_split):
                 fn.restype = ctypes.c_int
-            for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles):
+            for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles, lib.pr_pairs_tiles):
                 fn.argtypes = [i64]
                 fn.restype = i64
+            lib.pr_split_window_words.argtypes = []
+            lib.pr_split_window_words.restype = i64
             lib.pr_error_string.argtypes = [ctypes.c_int]
             lib.pr_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -86,6 +86,41 @@ def bitpack_values(values: torch.Tensor, bit_depth: int) -> torch.Tensor:
     return out.reshape(*lead, (n // g_vals) * g_bytes)
 
 
+def packed_word_group_shape(bit_depth: int):
+    """(values per group, 32-bit words per group) for a ``bit_depth``-bit stream."""
+    l = math.lcm(32, bit_depth)
+    return l // bit_depth, l // 32
+
+
+def bitpack_values_words(values: torch.Tensor, bit_depth: int) -> torch.Tensor:
+    """Word-oriented :func:`bitpack_values`: each group of ``lcm(32, b) /
+    b`` values is combined into ``lcm(32, b) / 32`` little-endian uint32
+    words, returned as their bytes (..., n*b/8) uint8.  ``n`` must be a
+    multiple of the word group size.  Values are read as uint32 and ORed
+    unmasked into their words, as the JAX version does: the bytes equal
+    :func:`bitpack_values`' for values that fit ``bit_depth`` bits."""
+    _check_depth(bit_depth)
+    g_vals, g_words = packed_word_group_shape(bit_depth)
+    *lead, n = values.shape
+    if n % g_vals:
+        raise ValueError(f"n={n} must be a multiple of the word group size {g_vals}")
+    v = (values.to(torch.int64) & _U32).reshape(*lead, n // g_vals, g_vals)
+    out_words = []
+    for j in range(g_words):
+        acc = None
+        for k in range(g_vals):
+            lo, hi = k * bit_depth, (k + 1) * bit_depth  # bit span of value k
+            if hi <= 32 * j or lo >= 32 * (j + 1):
+                continue
+            shift = lo - 32 * j
+            piece = (v[..., k] << shift) & _U32 if shift >= 0 else v[..., k] >> (-shift)
+            acc = piece if acc is None else acc | piece
+        out_words.append(acc)
+    w = torch.stack(out_words, dim=-1)                   # (..., G, g_words)
+    by = torch.stack([(w >> (8 * i)) & 0xFF for i in range(4)], dim=-1).to(torch.uint8)
+    return by.reshape(*lead, (n // g_vals) * g_words * 4)
+
+
 def bitunpack_values(packed: torch.Tensor, bit_depth: int,
                      out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """Unpack a ``bit_depth``-bit stream (..., m) into values (..., m*8/b).

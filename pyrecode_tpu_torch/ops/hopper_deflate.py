@@ -4,7 +4,10 @@
 The device half of the scheme-0 entropy stage, in place of
 pyrecode_tpu/ops/pallas_deflate.py: ``tokenize`` replaces
 ``tokenize_pallas``, ``tokenize_compact`` replaces
-``tokenize_compact_pallas`` and ``assemble`` replaces ``assemble_pallas``.
+``tokenize_compact_pallas``, ``assemble`` replaces ``assemble_pallas`` and
+``assemble_split`` replaces ``assemble_pallas_split`` (the same contract
+and bytes by a parallel phase-0 scatter of each tile, then a shift of each
+tile into its bit phase).
 The token rules are those of pyrecode_tpu/codecs/dyndeflate.py
 (``tokenize_bytes_np``); the streams the JAX package's host step finishes
 from these outputs are byte-identical to ``native.deflate_sparse``.
@@ -17,8 +20,8 @@ Differences from the TPU kernels, none of which changes a byte of output:
   ``TOKEN_BUCKETS`` are VMEM sizes, so overflow here means only that a
   stream has more than ``out_bound`` tokens (the histogram stays exact, and
   the caller retries with the exact bound);
-* ``assemble`` takes no scatter-window size: the TPU's window presets bound
-  a VMEM matmul and have no counterpart here;
+* ``assemble`` and ``assemble_split`` take no scatter-window size: the
+  TPU's window presets bound a VMEM matmul and have no counterpart here;
 * adler32 comes back as int64, not uint32.
 
 Constants are defined here, not imported: pallas_deflate imports JAX.
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _launch
+from . import _build, _launch
 from .hopper_encode import encode_l1, encode_l1_plain
 
 NO_TOKEN = 512          # LUT index of "no token"; tokens travel as NO_TOKEN - index
@@ -46,6 +49,7 @@ _MAX_COLS = (1 << 31) - 2 * TILE  # positions and bit offsets stay in int32 in t
 TOKENIZE_LAUNCHES = _launch.LaunchCounter()
 TOKENIZE_COMPACT_LAUNCHES = _launch.LaunchCounter()
 ASSEMBLE_LAUNCHES = _launch.LaunchCounter()
+ASSEMBLE_SPLIT_LAUNCHES = _launch.LaunchCounter()
 
 
 def _check_streams(streams: torch.Tensor, lengths: torch.Tensor) -> None:
@@ -271,4 +275,31 @@ def assemble(tok: torch.Tensor, lut: torch.Tensor, phase: torch.Tensor, partial:
                    _launch.ptr(phase), _launch.ptr(partial), _launch.ptr(body),
                    _launch.ptr(totbits), _launch.ptr(overflow), _launch.ptr(tile_bits),
                    _launch.ptr(totals), B, ncols, out_rounded)
+    return body, totbits, overflow
+
+
+def assemble_split(tok: torch.Tensor, lut: torch.Tensor, phase: torch.Tensor,
+                   partial: torch.Tensor, out_bound: int):
+    """:func:`assemble` by the split form: each TILE of tokens is scattered
+    at bit phase 0 into its own window, then every window is shifted into
+    its phase and placed in the body.  Same arguments, outputs and bytes;
+    its twin is :func:`assemble_plain`."""
+    out_rounded = _check_assemble(tok, lut, phase, partial, out_bound)
+    if _launch.on_host(tok, lut, phase, partial):
+        return assemble_plain(tok, lut, phase, partial, out_bound)
+    B, ncols = tok.shape
+    dev = tok.device
+    tiles = _launch.deflate_tiles(ncols)
+    body = torch.empty((B, out_rounded), dtype=torch.uint8, device=dev)
+    totbits = torch.empty(B, dtype=torch.int32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    tile_bits = torch.empty((B, tiles), dtype=torch.int32, device=dev)
+    totals = torch.empty(B, dtype=torch.int32, device=dev)
+    windows = torch.empty((B, tiles, int(_build.load().pr_split_window_words())),
+                          dtype=torch.int32, device=dev)
+    _launch.launch(ASSEMBLE_SPLIT_LAUNCHES, "pr_assemble_split", dev,
+                   _launch.ptr(tok), int(tok.dtype == torch.int32), _launch.ptr(lut),
+                   _launch.ptr(phase), _launch.ptr(partial), _launch.ptr(body),
+                   _launch.ptr(totbits), _launch.ptr(overflow), _launch.ptr(tile_bits),
+                   _launch.ptr(totals), _launch.ptr(windows), B, ncols, out_rounded)
     return body, totbits, overflow

@@ -22,6 +22,19 @@ the value's rank, zeros from ``count`` on.  ``pos_vbits`` > 0 then masks
 the stored values to their low ``pos_vbits`` bits, as the TPU kernel does
 (the scheme-12 symbol alphabet needs it; the packed stream keeps exactly
 those bits anyway).
+
+``pairs_out`` > 0 (kernel #1b, the ``pairs_out`` output of the TPU kernel,
+pallas_encode.py:572-600) adds two outputs, with or without values: pairs
+(B, pairs_out) int32, ``(byte_index << 8) | byte_value`` of every nonzero
+byte of the frame's bitmap in ascending byte order, zeros from the count on
+(the input of :func:`.hopper_tokens.tokens_from_pairs`); and pair_counts
+(B,) int32.  The overflow flag then also says pair_count > pairs_out.  It
+cannot be combined with ``with_positions``.  Against the TPU kernel: the
+counts stay exact on overflow (the TPU clamps its running offset at the
+capacity), the flag is raised at exactly ``pairs_out`` (the TPU rounds its
+capacity up to 128), and there are no per-sub-row capacity buckets.
+``pairs_out = out_size`` always suffices when the values do not overflow:
+every nonzero byte holds a foreground pixel.
 """
 
 from __future__ import annotations
@@ -34,10 +47,12 @@ from .compact import stream_compact
 
 LAUNCHES = _launch.LaunchCounter()
 POSITIONS_LAUNCHES = _launch.LaunchCounter()   # the launches that store positions
+PAIRS_LAUNCHES = _launch.LaunchCounter()       # the launches that store bitmap-byte pairs
+MAX_PAIR_BYTES = 1 << 23                        # a pair keeps its byte index in 23 bits
 
 
 def _check(frames: torch.Tensor, threshold: torch.Tensor, with_values: bool = True,
-           with_positions: bool = False, pos_vbits: int = 0) -> None:
+           with_positions: bool = False, pos_vbits: int = 0, pairs_out: int = 0) -> None:
     _launch.require(frames, "frames", torch.uint16, 3)
     _launch.require(threshold, "threshold", torch.uint16, 2)
     if tuple(threshold.shape) != tuple(frames.shape[1:]):
@@ -52,12 +67,29 @@ def _check(frames: torch.Tensor, threshold: torch.Tensor, with_values: bool = Tr
         raise ValueError("with_positions needs with_values")
     if not 0 <= pos_vbits <= 16:
         raise ValueError(f"pos_vbits must be in 0..16, got {pos_vbits}")
+    if pairs_out < 0:
+        raise ValueError(f"pairs_out must be >= 0, got {pairs_out}")
+    if pairs_out and with_positions:
+        raise ValueError("pairs_out cannot be combined with with_positions")
+    if pairs_out and (H * W + 7) // 8 >= MAX_PAIR_BYTES:
+        raise ValueError(f"pairs need bitmaps of fewer than {MAX_PAIR_BYTES} bytes, "
+                         f"got {(H * W + 7) // 8}")
+
+
+def bitmap_pairs(bitmap: torch.Tensor, pairs_out: int):
+    """(byte_index << 8) | value of each nonzero byte of bitmaps (B, NB)
+    uint8, compacted to (B, pairs_out) int32, and their counts (B,) int32."""
+    B, nb = bitmap.shape
+    v = bitmap.to(torch.int32)
+    index = torch.arange(nb, dtype=torch.int32, device=bitmap.device).reshape(1, nb)
+    return stream_compact((index << 8) | v, v != 0, pairs_out)
 
 
 def encode_l1_plain(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
-                    with_values: bool = True, with_positions: bool = False, pos_vbits: int = 0):
+                    with_values: bool = True, with_positions: bool = False, pos_vbits: int = 0,
+                    pairs_out: int = 0):
     """Plain PyTorch version of :func:`encode_l1`, on any device."""
-    _check(frames, threshold, with_values, with_positions, pos_vbits)
+    _check(frames, threshold, with_values, with_positions, pos_vbits, pairs_out)
     B, H, W = frames.shape
     n = H * W
     f = _launch.u16_to_i32(frames).reshape(B, n)
@@ -65,30 +97,37 @@ def encode_l1_plain(frames: torch.Tensor, threshold: torch.Tensor, out_size: int
     mask = f > t
     counts = mask.sum(dim=1, dtype=torch.int32)
     bitmap = pack_bits(torch.nn.functional.pad(mask.to(torch.uint8), (0, -n % 8)))
-    if not with_values:
-        return bitmap, None, counts, torch.zeros(B, dtype=torch.bool, device=frames.device)
-    residual = f - t
-    if with_positions and pos_vbits:
-        residual = residual & ((1 << pos_vbits) - 1)
-    comp = stream_compact(residual, mask, out_size)[0]
+    if with_values:
+        residual = f - t
+        if with_positions and pos_vbits:
+            residual = residual & ((1 << pos_vbits) - 1)
+        comp = stream_compact(residual, mask, out_size)[0]
+        overflow = counts > out_size
+    else:
+        comp, overflow = None, torch.zeros(B, dtype=torch.bool, device=frames.device)
     if with_positions:
         index = torch.arange(n, dtype=torch.int32, device=frames.device).expand(B, n)
         pos = stream_compact(index, mask, out_size)[0]
-        return bitmap, comp, counts, counts > out_size, pos
-    return bitmap, comp, counts, counts > out_size
+        return bitmap, comp, counts, overflow, pos
+    if pairs_out:
+        pairs, pair_counts = bitmap_pairs(bitmap, pairs_out)
+        return bitmap, comp, counts, overflow | (pair_counts > pairs_out), pairs, pair_counts
+    return bitmap, comp, counts, overflow
 
 
 def encode_l1(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
-              with_values: bool = True, with_positions: bool = False, pos_vbits: int = 0):
-    """Returns (bitmap, comp or None, counts, overflow[, pos]) as described above."""
-    _check(frames, threshold, with_values, with_positions, pos_vbits)
+              with_values: bool = True, with_positions: bool = False, pos_vbits: int = 0,
+              pairs_out: int = 0):
+    """Returns (bitmap, comp or None, counts, overflow[, pos | , pairs,
+    pair_counts]) as described above."""
+    _check(frames, threshold, with_values, with_positions, pos_vbits, pairs_out)
     if out_size < 0:
         raise ValueError(f"out_size must be >= 0, got {out_size}")
     if not with_positions:
         pos_vbits = 0
     if _launch.on_host(frames, threshold):
         return encode_l1_plain(frames, threshold, out_size, with_values, with_positions,
-                               pos_vbits)
+                               pos_vbits, pairs_out)
     B, H, W = frames.shape
     n = H * W
     dev = frames.device
@@ -100,11 +139,22 @@ def encode_l1(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
     pos = torch.empty_like(comp) if with_positions else None
     if with_positions:
         POSITIONS_LAUNCHES.add()
+    pairs = pair_counts = pair_tiles = pair_overflow = None
+    if pairs_out:
+        pairs = torch.empty((B, pairs_out), dtype=torch.int32, device=dev)
+        pair_counts = torch.empty(B, dtype=torch.int32, device=dev)
+        pair_tiles = torch.empty_like(tiles)
+        pair_overflow = torch.empty(B, dtype=torch.bool, device=dev)
+        PAIRS_LAUNCHES.add()
+    opt = [_launch.ptr(t) if t is not None else None
+           for t in (pos, pairs, pair_counts, pair_tiles, pair_overflow)]
     _launch.launch(LAUNCHES, "pr_encode_l1", dev,
                    _launch.ptr(frames), _launch.ptr(threshold), _launch.ptr(bitmap),
                    _launch.ptr(comp), _launch.ptr(counts), _launch.ptr(overflow),
-                   _launch.ptr(tiles), _launch.ptr(pos) if with_positions else None,
-                   pos_vbits, B, n, out_size, int(with_values))
+                   _launch.ptr(tiles), opt[0], pos_vbits, B, n, out_size, int(with_values),
+                   *opt[1:], pairs_out)
     if with_positions:
         return bitmap, comp, counts, overflow, pos
+    if pairs_out:
+        return bitmap, comp if with_values else None, counts, overflow, pairs, pair_counts
     return bitmap, comp if with_values else None, counts, overflow

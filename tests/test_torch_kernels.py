@@ -18,7 +18,7 @@ from pyrecode_tpu_torch import InputParams, native
 from pyrecode_tpu_torch.codecs import rans
 from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tables
 from pyrecode_tpu_torch.ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode,
-                                    hopper_gaps, hopper_label, hopper_rans)
+                                    hopper_gaps, hopper_label, hopper_rans, hopper_tokens)
 from chip_smoke import label_edge_frames, make_puddle_frames
 
 pytestmark = pytest.mark.gpu
@@ -304,3 +304,68 @@ def test_bitmap_positions_matches_twin(cuda):
             assert hopper_gaps.LAUNCHES.value == before + 1
             _equal(got, hopper_gaps.bitmap_positions_plain(bm, out_size))
             assert got[2].tolist() == [int(n) > out_size for n in bits.sum(axis=1)]
+
+
+def test_bitpack12_words_matches_twin(cuda):
+    rng = np.random.default_rng(41)
+    v = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 100008)).astype(np.int32)).to(cuda)
+    before = hopper_bitpack.WORDS_LAUNCHES.value
+    got = hopper_bitpack.bitpack12_words(v)
+    assert hopper_bitpack.WORDS_LAUNCHES.value == before + 1
+    _equal([got], [hopper_bitpack.bitpack12_words_plain(v)])
+    small = v & 4095
+    assert torch.equal(hopper_bitpack.bitpack12_words(small).view(torch.uint8),
+                       hopper_bitpack.bitpack12(small))
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+@pytest.mark.parametrize("with_values", [True, False])
+def test_encode_l1_pairs_matches_twin(cuda, shape, with_values):
+    frames, thr = _frames(0.2, shape, seed=42)
+    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+    n = shape[0] * shape[1]
+    for out_size, pairs_out in ((n, n), (n, 50), (100, n)):   # fits; pairs overflow; values overflow
+        before = hopper_encode.PAIRS_LAUNCHES.value
+        got = hopper_encode.encode_l1(f, t, out_size, with_values, pairs_out=pairs_out)
+        assert hopper_encode.PAIRS_LAUNCHES.value == before + 1
+        _equal(got, hopper_encode.encode_l1_plain(f, t, out_size, with_values,
+                                                  pairs_out=pairs_out))
+
+
+def test_tokens_from_pairs_matches_twin(cuda):
+    """Sparse rows, an empty row (the tail sentinel alone), a gap of more
+    than 1549 bytes, a nonzero run of 4 (flagged), and a bound below the
+    count (the counts and the histogram stay exact)."""
+    rng = np.random.default_rng(43)
+    n = 60000
+    rows = (rng.integers(1, 256, (5, n)) * (rng.random((5, n)) < 0.02)).astype(np.uint8)
+    rows[1] = 0
+    rows[2, 100:40000] = 0
+    rows[3, 500:504] = 9
+    p, c = hopper_encode.bitmap_pairs(torch.from_numpy(rows).to(cuda), n)
+    full = hopper_tokens.tokens_from_pairs_plain(p, c, n, 4 * n)[2]
+    for bound in (int(full.max()), int(full.min()) // 2):
+        before = hopper_tokens.LAUNCHES.value
+        got = hopper_tokens.tokens_from_pairs(p, c, n, bound)
+        assert hopper_tokens.LAUNCHES.value == before + 1
+        _equal(got, hopper_tokens.tokens_from_pairs_plain(p, c, n, bound))
+        assert got[3].tolist() == [False, False, False, True, False]
+
+
+def test_assemble_split_matches_twin(cuda):
+    _, streams, lengths = _streams()
+    s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
+    tok, hist, _ = hopper_deflate.tokenize(s, n)
+    tables = host_tables(hist.cpu().numpy())
+    args = [torch.from_numpy(a).to(cuda) for a in (tables.luts, tables.phases, tables.partials)]
+    comp = hopper_deflate.tokenize_compact(s, n, streams.shape[1])[0]
+    for t in (tok, comp):
+        for out_bound in (2 * streams.shape[1] + 256, 300):   # fits; overflows
+            before = hopper_deflate.ASSEMBLE_SPLIT_LAUNCHES.value
+            got = hopper_deflate.assemble_split(t, *args, out_bound)
+            assert hopper_deflate.ASSEMBLE_SPLIT_LAUNCHES.value == before + 1
+            _equal(got, hopper_deflate.assemble_plain(t, *args, out_bound))
+            _equal(got, hopper_deflate.assemble(t, *args, out_bound))
+    raws, _, _ = _streams()
+    assert deflate_batch_device(s, lengths, split_assemble=True) == \
+        [native.deflate_sparse(r) for r in raws]
