@@ -60,6 +60,20 @@ Phases (each raises on failure; nothing is caught):
    the default path's, each of the four kernels launched, and the path's
    wall beside the default path's.
 
+10. the tools (pyrecode_tpu_torch.tools): the encode and decode phase
+   probes at 4 x 4096^2, 1% (each cut-off against its twin, "full" against
+   encode_l1 / decode_l1), the butterfly probe (four variants, SUB 512 and
+   2048, four densities, against the stable-compaction oracle), the f32-dot
+   probe (tf32 / 3xtf32 / fp32 bit for bit against the twins, 3xtf32 and
+   fp32 exact) and the eight lowering probes (against numpy), each probe's
+   lines printed with the card; then one L1 scheme-0 writer on the 16
+   frames of phase 4 without and with run(profile_dir=) (equal part files,
+   one Chrome trace) and the device busy share from that trace.
+
+Phase 6 also writes 8 of the frames as 8-bit values (clipped at 255) at
+scheme 12 with one writer and the card's default entropy: both streams on
+the device, every stream through the host rans.decompress, the read exact.
+
 Phase 3 also holds the label kernel (all five L2/L4 modes) and the bitmap
 -> positions kernel against their twins on a batch of puddle frames, its
 bitmaps and statistics streams, and an edge battery, and the four kernels
@@ -88,10 +102,14 @@ from pyrecode_tpu_torch.codecs import dyndeflate, rans
 from pyrecode_tpu_torch.codecs.dyndeflate import quantize_bound
 from pyrecode_tpu_torch.constants import rc_cfg as rc
 from pyrecode_tpu_torch.ops import (_build, _launch, hopper_bitpack, hopper_decode, hopper_deflate,
-                                    hopper_encode, hopper_gaps, hopper_label, hopper_rans,
-                                    hopper_tokens)
+                                    hopper_encode, hopper_gaps, hopper_label, hopper_probes,
+                                    hopper_rans, hopper_tokens)
 from pyrecode_tpu_torch.ops.bitpack import bitpack_values, unpack_bits
 from pyrecode_tpu_torch.ops.encode import count_foreground, encode_frames_auto
+from pyrecode_tpu_torch.profiling import cuda_event_time, trace
+from pyrecode_tpu_torch.tools import (probe_butterfly, probe_decode_phases, probe_f32dot,
+                                      probe_mosaic, probe_phases)
+from pyrecode_tpu_torch.tools._common import HBM_BYTES_PER_S, max_abs_err, sparse_batch
 from pyrecode_tpu_torch.writer import _bucket_for
 
 REPO = Path(__file__).resolve().parent
@@ -128,8 +146,15 @@ KERNELS = {
                        "pyrecode_tpu/ops/pallas_deflate.py:926"),
     "bitpack12_words": ("pyrecode_tpu_torch/csrc/bitpack12.cu",
                         "pyrecode_tpu/ops/pallas_bitpack.py:78"),
+    "encode_l1_phases": ("pyrecode_tpu_torch/csrc/encode_l1.cu", "tools/probe_phases.py:152"),
+    "decode_l1_phases": ("pyrecode_tpu_torch/csrc/decode_l1.cu",
+                         "tools/probe_decode_phases.py:129"),
+    "probe_mosaic": ("pyrecode_tpu_torch/csrc/probe_mosaic.cu", "tools/probe_mosaic.py:20,95,114"),
+    "probe_f32dot": ("pyrecode_tpu_torch/csrc/probe_f32dot.cu", "tools/probe_f32dot.py:23"),
+    "probe_butterfly": ("pyrecode_tpu_torch/csrc/probe_butterfly.cu",
+                        "tools/probe_butterfly.py:127"),
 }
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate (NVIDIA's data sheet)
 # the kernels each slice's main path must launch
 SCHEME0_KERNELS = ("encode_l1", "bitpack12", "tokenize", "tokenize_compact", "assemble",
                    "bitunpack12", "decode_l1")
@@ -138,6 +163,8 @@ SCHEME12_KERNELS = ("encode_l1", "encode_l1_positions", "bitpack12", "rans_hist"
 MULTIDEVICE_KERNELS = ("encode_l1", "bitpack12", "label_l2l4", "tokenize", "assemble",
                        "rans_encode_tokens", "rans_decode", "bitunpack12", "decode_l1")
 ALTERNATES_KERNELS = ("encode_l1_pairs", "bitpack12_words", "tokens_from_pairs", "assemble_split")
+TOOL_KERNELS = ("encode_l1_phases", "decode_l1_phases", "probe_mosaic", "probe_f32dot",
+                "probe_butterfly")
 MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
 RANK_TIMEOUT_S = 300.0    # phase 8 (b): a rank that runs longer fails the script
 ALT_BATCH = 4             # phase 9: frames a batch
@@ -274,37 +301,6 @@ def expect(condition, message) -> None:
         raise AssertionError(message)
 
 
-def as_i64(t: torch.Tensor) -> torch.Tensor:
-    if t.dtype == torch.uint16:
-        return _launch.u16_to_i32(t).to(torch.int64)
-    return t.to(torch.int64)
-
-
-def max_abs_err(got, want) -> int:
-    """Largest |got - want| over paired outputs; raises on a shape mismatch."""
-    worst = 0
-    for g, w in zip(got, want):
-        if g is None and w is None:
-            continue
-        if tuple(g.shape) != tuple(w.shape):
-            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        if g.numel():
-            worst = max(worst, int((as_i64(g) - as_i64(w)).abs().max()))
-    return worst
-
-
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def io_bytes(*items) -> int:
     """Bytes of tensors (each read or written once), or of nested tuples of them."""
     total = 0
@@ -321,9 +317,10 @@ def measure(entry, err: int, reps: int, plain_reps: int) -> dict:
     and the kernel's bound: the bytes it must move over the card's memory
     rate (every kernel here does a few integer operations per byte)."""
     kernel, plain, nbytes, library = entry[:4]
-    return {"max_abs_err": err, "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, plain_reps),
+    return {"max_abs_err": err, "ms": cuda_event_time(kernel, reps, 1),
+            "plain_ms": cuda_event_time(plain, plain_reps, 1),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": cuda_ms(library, reps) if library is not None else None}
+            "library_ms": cuda_event_time(library, reps, 1) if library is not None else None}
 
 
 def deflate_battery(rng):
@@ -1032,14 +1029,16 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     for name, entry in label_timed.items():
         out[name] = measure(entry, err[name], reps, plain_reps)
         report(name, "puddle frames" if name == "label_l2l4" else "bitmaps")
-    out["label_l2l4"]["mode_ms"] = {m: cuda_ms(fn, reps) for m, fn in label_modes.items()}
+    out["label_l2l4"]["mode_ms"] = {m: cuda_event_time(fn, reps, 1)
+                                    for m, fn in label_modes.items()}
     print(f"  label_l2l4       kernel ms by mode: {out['label_l2l4']['mode_ms']}")
     for name, entry in alt_timed.items():
         out[name] = measure(entry, err[name], reps, plain_reps)
         report(name, "slice bitmaps" if name in ("tokens_from_pairs", "assemble_split") else
                "frames" if name == "encode_l1_pairs" else "slice values")
     # the wrapper's adler32 (torch reductions over the pairs) alone
-    out["tokens_from_pairs"]["adler_ms"] = cuda_ms(alt_timed["tokens_from_pairs"][4], reps)
+    out["tokens_from_pairs"]["adler_ms"] = cuda_event_time(alt_timed["tokens_from_pairs"][4],
+                                                           reps, 1)
     print(f"  tokens_from_pairs of which adler32 (torch ops): "
           f"{out['tokens_from_pairs']['adler_ms']:.4f} ms")
     return out
@@ -1050,13 +1049,13 @@ L4_CENTROIDING = {"weighted_average": 1, "max": 2, "unweighted": 3}
 
 
 def slice_params(n_frames: int, height: int, width: int, num_threads: int, scheme: int = 0,
-                 level: int = 1, statistic=None):
-    """Mode 1, 12-bit parameters of a slice at compression scheme 0 or 12 and
+                 level: int = 1, statistic=None, bit_depth: int = 12):
+    """Mode 1 parameters of a slice at compression scheme 0 or 12 and
     reduction ``level`` (L1 by default), with ``statistic`` the L2 summary
-    statistic or the L4 centroiding scheme."""
+    statistic or the L4 centroiding scheme, ``bit_depth``-bit (12 by default)."""
     params = port.InputParams(dict(
         reduction_level=level, rc_operation_mode=1, calibration_threshold_epsilon=EPSILON,
-        target_bit_depth=12, source_bit_depth=12, num_cols=width, num_rows=height,
+        target_bit_depth=bit_depth, source_bit_depth=bit_depth, num_cols=width, num_rows=height,
         num_frames=n_frames, frame_offset=0, num_calibration_frames=1,
         calibration_frame_offset=0, keep_part_files=1, num_threads=num_threads,
         l2_statistics=L2_STATISTICS.get(statistic, 0) if level == 2 else 0,
@@ -1176,6 +1175,53 @@ def check_scheme12_streams(device, data, dark, merged, batch=4):
            "scheme-12 coders on CUDA and CPU tensors differ")
     print(f"scheme-12 coders: gap and symbol streams of {batch} frames equal on CUDA and CPU "
           "tensors")
+
+
+def run_8bit_scheme12(device, data, dark, work_dir: Path) -> dict:
+    """Phase 6, 8-bit values: one writer with the card's default entropy
+    (device_entropy=None) writes 8-bit frames at L1, scheme 12; both streams
+    must be coded on the device (the rANS histogram and encode launched, the
+    values as 8-bit symbols at kernel lane counts), every stream must decode
+    through the host rans.decompress to its raw stream, and the merged file
+    must read back exactly.  ``data`` (n, h, w) and ``dark`` (h, w) uint8.
+    Returns the writer's launch counts."""
+    n, height, width = data.shape
+    thr = (dark.astype(np.int64) + EPSILON).astype(np.uint8)
+    writer = port.ReCoDeWriter("eight", dark_data=dark, output_directory=str(work_dir),
+                               input_params=slice_params(n, height, width, 1, 12, bit_depth=8),
+                               device=device)
+    expect(writer._device_entropy, "8-bit scheme-12 device entropy is not the default on the card")
+    port.reset_kernel_launch_counts()
+    writer.start()
+    writer.run(data)
+    writer.close()
+    launches = port.kernel_launch_counts()
+    expect(launches["rans_hist"] > 0 and launches["rans_encode"] > 0,
+           f"8-bit scheme 12: the rANS kernels were not launched ({launches})")
+    reader = port.ReCoDeReader(port.merge_parts(str(work_dir), "eight.rc1", 1), device=device)
+    reader.open()
+    records = [reader.get_next_frame_raw()[z]["data"] for z in range(n)]
+    read = reader.read_frames_dense(0, n)
+    reader.close()
+    kinds = Counter()
+    for z, rec in enumerate(records):
+        enc = oracle.reduce_frame(data[z], thr, 1, 8)
+        hp = rans._parse_header(rec["pixvals"])
+        expect(hp.get("sym_bits") == 8 and hp["nways"] in rans.KERNEL_NWAYS,
+               f"8-bit frame {z}: the values were not coded on the device as 8-bit symbols")
+        expect(rans.decompress(rec["pixvals"]) == bytes(enc["packed_pixvals"]),
+               f"8-bit frame {z}: the value stream does not decode to the values")
+        expect(rans.decompress(rec["binary_map"]) == bytes(enc["packed_binary_map"]),
+               f"8-bit frame {z}: the bitmap stream does not decode to the bitmap")
+        hb = rans._parse_header(rec["binary_map"])
+        kinds[f"bitmap {'gap' if hb.get('gap') else 'symbol'}/{hb['nways']}, "
+              f"values symbol/{hp['nways']}"] += 1
+    expect(np.array_equal(read, np.where(data > thr, data - thr, 0)),
+           "8-bit scheme 12: read_frames_dense differs from the residuals")
+    print(f"8-bit scheme 12: {n} frames {height}x{width}, one writer, device entropy by default; "
+          f"streams {dict(kinds)}; every stream decodes through rans.decompress; read exact; "
+          f"rans_hist {launches['rans_hist']}, rans_encode {launches['rans_encode']} launches")
+    return launches
 
 
 def compare_entropy_paths(device, data, dark, work_dir: Path, level: int = 1, statistic=None):
@@ -1502,6 +1548,148 @@ def run_alternates(device, data, dark, puddles, pdark) -> dict:
             "default_s": default_s}
 
 
+def run_tools(device, gpu: str, size: int = 4096) -> dict:
+    """Phase 10, the developer tools: each probe of pyrecode_tpu_torch.tools
+    at the JAX probe's default sizes (the phase probes at 4 x 4096^2, 1%),
+    each holding its kernel against its twin (the phase probes also hold
+    "full" against encode_l1 / decode_l1) and the probe's own oracle; every
+    probe line printed with the card.  Returns {"launches": the probes'
+    launches, "stats": the kernels line's entries of the five kernels}."""
+    port.reset_kernel_launch_counts()
+    enc = probe_phases.run(device, size=size)
+    dec = probe_decode_phases.run(device, size=size)
+    mos = probe_mosaic.run(device)
+    dot = probe_f32dot.run(device)
+    fly = probe_butterfly.run(device)
+    launches = port.kernel_launch_counts()
+    for result in (enc, dec, mos, dot, fly):
+        for line in result["lines"]:
+            print(f"  {line} [{gpu}]")
+    expect(all(v == "OK" for v in mos["status"].values()), f"lowering probes: {mos['status']}")
+    expect(all(v == "OK" for v in fly["status"].values()), f"butterfly: {fly['status']}")
+    modes = dot["modes"]
+    expect(all(r["twin_equal"] for r in modes.values()), "f32dot differs from its twin")
+    expect(modes["3xtf32"]["exact"] and modes["fp32"]["exact"], "3xtf32 / fp32 not exact")
+    # each kernel's largest difference from its twin, over every call the probe checked
+    errs = {"encode_l1_phases": max(r["max_abs_err"] for r in enc["rows"]),
+            "decode_l1_phases": max(r["max_abs_err"] for r in dec["rows"]),
+            "probe_mosaic": mos["max_abs_err"],
+            "probe_f32dot": max(r["twin_err"] for r in modes.values()),
+            "probe_butterfly": fly["max_abs_err"]}
+    if device.type != "cuda":
+        return {"launches": launches, "stats": {name: {"max_abs_err": errs[name]}
+                                                for name in TOOL_KERNELS}}
+
+    # the kernels line: each kernel's own work against its bound and twin
+    def phase_entry(result, name, phase, plain):
+        row = next(r for r in result["rows"] if r["phase"] == phase)
+        return {"max_abs_err": errs[name], "ms": row["ms"],
+                "plain_ms": cuda_event_time(plain, 3, 1),
+                "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                "phase_ms": {r["phase"]: r["ms"] for r in result["rows"]},
+                "phase_bound_ms": {r["phase"]: r["bound_ms"] for r in result["rows"]}}
+
+    n = size
+    frames_np, thr_np = sparse_batch(4, n, OCCUPANCY)
+    frames, thr = torch.from_numpy(frames_np).to(device), torch.from_numpy(thr_np).to(device)
+    bitmap, values = hopper_encode.encode_l1(frames, thr, enc["out_size"])[:2]
+    lut_np, oh_np, _ = probe_f32dot.make_inputs()
+    lut, oh = torch.from_numpy(lut_np).to(device), torch.from_numpy(oh_np).to(device)
+    # 3xtf32: three m16n8k8 passes over 48 x 2048 x 32 multiply-adds, on the tensor cores
+    dot_s = {"bytes": (io_bytes(lut, oh) + 48 * 2048 * 4) / HBM_BYTES_PER_S,
+             "operations": 3 * 2 * 48 * 2048 * 32 / TF32_OPS_PER_S}
+    dot_by = max(dot_s, key=dot_s.get)
+    m, v = fly["timed"][2048]
+    mos_inputs = {k: [torch.from_numpy(x).to(device) for x in ins]
+                  for k, (ins, _) in probe_mosaic.cases().items()}
+    stats = {
+        "encode_l1_phases": phase_entry(
+            enc, "encode_l1_phases", "load",
+            lambda: hopper_encode.encode_l1_phases_plain(frames, thr, enc["out_size"], True,
+                                                         "load")),
+        "decode_l1_phases": phase_entry(
+            dec, "decode_l1_phases", "store",
+            lambda: hopper_decode.decode_l1_phases_plain(bitmap, values, n, n, "store")),
+        "probe_mosaic": {"max_abs_err": errs["probe_mosaic"], "ms": mos["all_ms"],
+                         "plain_ms": cuda_event_time(lambda: [hopper_probes.mosaic_plain(k, *t)
+                                                              for k, t in mos_inputs.items()], 3, 1),
+                         "bound_ms": mos["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                         "library_ms": None, "probe_ms": mos["ms"]},
+        "probe_f32dot": {"max_abs_err": errs["probe_f32dot"], "ms": modes["3xtf32"]["ms"],
+                         "mode": "3xtf32",
+                         "plain_ms": cuda_event_time(
+                             lambda: hopper_probes.f32dot_plain(lut, oh, "3xtf32"), 3, 1),
+                         "bound_ms": dot_s[dot_by] * 1e3, "bound_by": dot_by,
+                         "library_ms": dot["library_ms"],
+                         "mode_ms": {k: r["ms"] for k, r in modes.items()}},
+        "probe_butterfly": {"max_abs_err": errs["probe_butterfly"],
+                            "ms": fly["ms"][2048, "two_array"],
+                            "variant": "two_array, SUB 2048, density 0.95",
+                            "plain_ms": cuda_event_time(lambda: hopper_probes.butterfly_plain(
+                                m, v, "two_array"), 3, 1),
+                            "bound_ms": io_bytes(m, v, v) / HBM_BYTES_PER_S * 1e3,
+                            "bound_by": "bytes", "library_ms": None,
+                            "variant_ms": {f"{name} SUB {sub}": t
+                                           for (sub, name), t in fly["ms"].items()}},
+    }
+    return {"launches": launches, "stats": stats}
+
+
+def trace_writer(device, data, dark, work_dir: Path) -> dict:
+    """Phase 10, the profiler: one L1 scheme-0 writer on ``data`` without and
+    with ``run(profile_dir=)`` (after one empty trace, which sets the
+    profiler up); the part files must be equal and a Chrome trace must be
+    written.  The device busy share is the union of the trace's kernel,
+    memcpy and memset intervals over the traced run's wall (host clock
+    around ``run``, which holds the profiler's own start, stop and export)
+    and over the span of the trace's own events."""
+    params = slice_params(*data.shape, num_threads=1)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    # the profiler's first start in a process sets up its tracer (seconds):
+    # do that outside the measured run
+    with trace(str(work_dir / "warm_up_trace")):
+        sync()
+    parts, walls = [], []
+    for k, profile_dir in enumerate((None, work_dir / "trace")):
+        out = work_dir / f"traced_{k}"
+        out.mkdir()
+        writer = port.ReCoDeWriter("smoke", dark_data=dark, output_directory=str(out),
+                                   input_params=params, device=device)
+        writer.start()
+        sync()
+        t0 = time.perf_counter()
+        writer.run(data, profile_dir=None if profile_dir is None else str(profile_dir))
+        sync()
+        walls.append(time.perf_counter() - t0)
+        writer.close()
+        parts.append((out / "smoke.rc1_part000").read_bytes())
+    expect(parts[0] == parts[1], "the traced writer's part file differs from the untraced one")
+    traces = sorted((work_dir / "trace").glob("*.pt.trace.json"))
+    expect(len(traces) == 1, f"profile_dir holds {len(traces)} trace files")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    expect(spans, "the trace holds no device interval")
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    timed = [float(e["ts"]) for e in events if e.get("ph") == "X" and "ts" in e]
+    span_us = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events
+                  if e.get("ph") == "X" and "ts" in e) - min(timed)
+    kinds = Counter(e["cat"] for e in events if e.get("ph") == "X"
+                    and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    result = {"untraced_s": walls[0], "traced_s": walls[1], "busy_ms": busy / 1e3,
+              "busy_share_wall": busy / 1e6 / walls[1], "busy_share_span": busy / span_us,
+              "span_ms": span_us / 1e3, "intervals": dict(kinds), "trace_bytes":
+              traces[0].stat().st_size}
+    print(f"profiler: one L1 scheme-0 writer, {data.shape[0]} frames; part files with and "
+          f"without profile_dir equal; trace {traces[0].name} ({result['trace_bytes']} bytes, "
+          f"device intervals {dict(kinds)})")
+    return result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU")
@@ -1539,6 +1727,10 @@ def main() -> None:
                 entropy_s = compare_entropy_paths(device, data, dark, work_dir)
             else:
                 check_scheme12_streams(device, data, dark, merged)
+                (work_dir / "eight").mkdir()
+                launches["scheme12_8bit"] = run_8bit_scheme12(
+                    device, np.minimum(data[:8], 255).astype(np.uint8), dark.astype(np.uint8),
+                    work_dir / "eight")
 
         puddles, pdark = make_puddle_frames(rng, 16, 4096, 4096)
         for (level, statistic, scheme), kernels in LEVEL_SLICES.items():
@@ -1570,6 +1762,16 @@ def main() -> None:
         missing = [name for name in ALTERNATES_KERNELS if alternates["launches"][name] == 0]
         if missing:
             raise AssertionError(f"kernels not launched by the alternates path: {missing}")
+
+        print("tools:")
+        tools = run_tools(device, gpu)
+        launches["tools"] = tools["launches"]
+        print(f"launches in the tools' probes: {tools['launches']}")
+        missing = [name for name in TOOL_KERNELS if tools["launches"][name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the tools: {missing}")
+        kernel_stats.update(tools["stats"])
+        traced = trace_writer(device, data, dark, work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     raw = data.nbytes
@@ -1586,6 +1788,12 @@ def main() -> None:
     print(f"alternates path (phase 9, 32 frames, encode to zlib streams): "
           f"{alternates['alt_s']:.3f} s; default path on the same frames: "
           f"{alternates['default_s']:.3f} s [{gpu}]")
+    print(f"device busy share of one L1 scheme-0 writer on 16 frames (torch.profiler): "
+          f"{traced['busy_share_wall']:.4f} of the traced run's wall {traced['traced_s']:.3f} s "
+          f"(which holds the profiler's own start, stop and trace export; the same run "
+          f"untraced: {traced['untraced_s']:.3f} s), {traced['busy_share_span']:.4f} of the "
+          f"trace's own span {traced['span_ms']:.3f} ms; device intervals "
+          f"{traced['busy_ms']:.3f} ms [{gpu}]")
     for what, seconds in (("L1 scheme 0", entropy_s), ("L4 weighted_average scheme 0",
                                                        entropy_l4)):
         for device_entropy, name in ((True, "device"), (False, "host")):

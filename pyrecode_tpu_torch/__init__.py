@@ -16,7 +16,11 @@ extraction,
 the rANS histogram, encode (of symbols, and of deflate tokens for the
 byte-mode coder) and decode, the L1 decode and the positions decode.
 :mod:`pyrecode_tpu_torch.parallel` spreads the encode over a mesh of
-devices and gathers the blocks over ``torch.distributed``.
+devices and gathers the blocks over ``torch.distributed``;
+:mod:`pyrecode_tpu_torch.profiling` traces a run with ``torch.profiler``;
+:mod:`pyrecode_tpu_torch.tools` holds the developer probes (the encode and
+decode phase splits, the butterfly, f32-dot and lowering probes), each on
+kernels of its own.
 
 The package is self-contained: it imports ``torch`` and never ``jax``, and
 nothing of :mod:`pyrecode_tpu`.  Headers, parameters, container layout,
@@ -30,7 +34,7 @@ device by default (``device_entropy``), as the JAX writer does on a TPU.
 """
 
 from .ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode, hopper_gaps,
-                  hopper_label, hopper_rans, hopper_tokens)
+                  hopper_label, hopper_probes, hopper_rans, hopper_tokens)
 from .params import InitParams, InputParams
 from .reader import ReCoDeReader, merge_parts
 from .server import ReCoDeServer
@@ -67,6 +71,11 @@ _COUNTERS = {
     "tokens_from_pairs": hopper_tokens.LAUNCHES,
     "assemble_split": hopper_deflate.ASSEMBLE_SPLIT_LAUNCHES,
     "bitpack12_words": hopper_bitpack.WORDS_LAUNCHES,
+    "encode_l1_phases": hopper_encode.PHASES_LAUNCHES,
+    "decode_l1_phases": hopper_decode.PHASES_LAUNCHES,
+    "probe_mosaic": hopper_probes.MOSAIC_LAUNCHES,
+    "probe_f32dot": hopper_probes.F32DOT_LAUNCHES,
+    "probe_butterfly": hopper_probes.BUTTERFLY_LAUNCHES,
 }
 
 

@@ -15,6 +15,12 @@
 //      (2 B/pixel, coalesced) and gathers one value per foreground pixel.
 // Pass 3's dense store is the floor of this memory-bound decode; the bitmap
 // is read twice because it is 1/16 of the output's bytes.
+//
+// pr_decode_l1_phases (the phase probe, pyrecode_tpu_torch/tools/
+// probe_decode_phases.py; replaces the truncated kernels of tools/
+// probe_decode_phases.py:build_phase_kernel) launches the passes above
+// unchanged, cut after one of them, plus decode_store_kernel: the floor,
+// the dense store of the bitmap's 0/1 mask alone.
 
 #include "common.cuh"
 
@@ -65,6 +71,29 @@ __global__ void decode_expand_kernel(const uint8_t* __restrict__ bitmap,
     }
 }
 
+// The probe's "store" phase (the TPU probe's "bitmap" phase): the dense u16
+// 0/1 mask of the bitmap in decode_expand_kernel's grid and layout, without
+// the tile offsets or the value gather.
+__global__ void decode_store_kernel(const uint8_t* __restrict__ bitmap,
+                                    uint16_t* __restrict__ dense, int64_t n_pixels,
+                                    int64_t n_bytes) {
+    const int64_t b = blockIdx.y;
+    const int64_t t = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    uint16_t* out = dense + b * n_pixels;
+    const int64_t first = t * TILE_WORDS + warp * WORDS_PER_WARP;
+    const uint32_t word = lane < WORDS_PER_WARP
+                              ? load_bitmap_word(bitmap + b * n_bytes, n_bytes, n_pixels,
+                                                 first + lane)
+                              : 0u;
+    for (int k = 0; k < WORDS_PER_WARP; ++k) {
+        const uint32_t w = __shfl_sync(kFullMask, word, k);
+        const int64_t p = (first + k) * 32 + lane;
+        if (p < n_pixels) out[p] = static_cast<uint16_t>((w >> lane) & 1u);
+    }
+}
+
 }  // namespace
 
 // bitmap (batch, ceil(n_pixels / 8)) u8, values (batch, n_values) i32 ->
@@ -87,5 +116,39 @@ extern "C" int pr_decode_l1(const void* bitmap, const void* values, void* dense,
     decode_expand_kernel<<<grid, BLOCK, 0, s>>>(
         bm, static_cast<const int*>(tiles), static_cast<const int32_t*>(values),
         static_cast<uint16_t*>(dense), n_pixels, n_bytes, n_tiles, n_values);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The phase probe's cut-offs of pr_decode_l1.  stop_after 0 ("store"):
+// decode_store_kernel alone, dense (batch, n_pixels) u16 0/1; 1 ("count"):
+// decode_count_kernel, each tile's set bits in tiles; 2 ("scan"): then
+// scan_tiles_kernel, the tile offsets in tiles, counts and overflow; 3
+// ("full"): pr_decode_l1 itself.  Arguments as pr_decode_l1's.  Returns
+// cudaGetLastError().
+extern "C" int pr_decode_l1_phases(const void* bitmap, const void* values, void* dense,
+                                   void* overflow, void* counts, void* tiles, int64_t batch,
+                                   int64_t n_pixels, int64_t n_values, int stop_after,
+                                   void* stream) {
+    if (stop_after >= 3) {
+        return pr_decode_l1(bitmap, values, dense, overflow, counts, tiles, batch, n_pixels,
+                            n_values, stream);
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t n_bytes = (n_pixels + 7) / 8;
+    const int64_t n_tiles = num_tiles(n_pixels);
+    const dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(batch));
+    auto* bm = static_cast<const uint8_t*>(bitmap);
+    if (stop_after == 0) {
+        decode_store_kernel<<<grid, BLOCK, 0, s>>>(bm, static_cast<uint16_t*>(dense), n_pixels,
+                                                   n_bytes);
+        return static_cast<int>(cudaGetLastError());
+    }
+    decode_count_kernel<<<grid, BLOCK, 0, s>>>(bm, static_cast<int*>(tiles), n_pixels, n_bytes,
+                                               n_tiles);
+    if (stop_after == 2) {
+        scan_tiles_kernel<<<static_cast<unsigned>(batch), SCAN_BLOCK, 0, s>>>(
+            static_cast<int*>(tiles), n_tiles, static_cast<int*>(counts),
+            static_cast<uint8_t*>(overflow), n_values);
+    }
     return static_cast<int>(cudaGetLastError());
 }

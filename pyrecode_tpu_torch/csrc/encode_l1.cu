@@ -38,6 +38,11 @@
 // tile's count and its scatter walk the same bytes, in ascending order.
 // The work is memory-bound: pass 1's dense read of the frame and threshold
 // is the floor, and the design keeps every other pass off the dense frame.
+//
+// pr_encode_l1_phases (the phase probe, pyrecode_tpu_torch/tools/
+// probe_phases.py; replaces the truncated kernels of tools/probe_phases.py:
+// build_phase_kernel) launches the passes above unchanged, cut after one of
+// them, plus encode_load_kernel: the floor of pass 1, its dense read alone.
 
 #include "common.cuh"
 
@@ -176,6 +181,46 @@ __global__ void encode_pairs_kernel(const uint8_t* __restrict__ bitmap,
     if (t == 0 && threadIdx.x == 0) overflow[b] |= pair_overflow[b];
 }
 
+// The probe's "load" phase: frame and threshold read once in pass 1's grid
+// and word layout, the loads of AHEAD words issued ahead of their use (pass
+// 1's loop, unrolled by 4, issues 8 loads ahead of 4 ballots), and one int64
+// sum of frame - threshold a tile, so that no load is dead.  It writes no
+// bitmap and counts nothing: its time is the floor under pass 1.
+__global__ void encode_load_kernel(const uint16_t* __restrict__ frames,
+                                   const uint16_t* __restrict__ thr, int64_t* __restrict__ sums,
+                                   int64_t n_pixels, int64_t n_tiles) {
+    constexpr int AHEAD = 4;
+    static_assert(WORDS_PER_WARP % AHEAD == 0, "whole groups of words");
+    __shared__ int64_t warp_sums[WARPS];
+    const int64_t b = blockIdx.y;
+    const int64_t t = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const uint16_t* f = frames + b * n_pixels;
+    const int64_t first = t * TILE_WORDS + warp * WORDS_PER_WARP;
+    int64_t acc = 0;
+    for (int k0 = 0; k0 < WORDS_PER_WARP; k0 += AHEAD) {
+        int x[AHEAD], y[AHEAD];
+#pragma unroll
+        for (int j = 0; j < AHEAD; ++j) {
+            const int64_t p = (first + k0 + j) * 32 + lane;
+            x[j] = p < n_pixels ? f[p] : 0;
+            y[j] = p < n_pixels ? thr[p] : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < AHEAD; ++j) acc += x[j] - y[j];
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) acc += __shfl_down_sync(kFullMask, acc, d);
+    if (lane == 0) warp_sums[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int64_t total = 0;
+        for (int i = 0; i < WARPS; ++i) total += warp_sums[i];
+        sums[b * n_tiles + t] = total;
+    }
+}
+
 }  // namespace
 
 // frames (batch, n_pixels) u16, thr (n_pixels) u16 -> bitmap (batch,
@@ -222,6 +267,44 @@ extern "C" int pr_encode_l1(const void* frames, const void* thr, void* bitmap, v
             static_cast<const uint8_t*>(bitmap), ptiles, static_cast<const int*>(pair_counts),
             static_cast<const uint8_t*>(pair_overflow), static_cast<uint8_t*>(overflow),
             static_cast<int32_t*>(pairs), n_pixels, n_bytes, n_tiles, pairs_out);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The phase probe's cut-offs of pr_encode_l1 without positions or pairs.
+// stop_after 0 ("load"): encode_load_kernel alone, sums (batch,
+// pr_num_tiles(n_pixels)) i64 of frame - threshold a tile; 1 ("bitmap"):
+// pass 1, the bitmap and each tile's foreground count in tiles; 2 ("scan"):
+// then scan_tiles_kernel, the tile offsets in tiles, counts and overflow;
+// 3 ("full"): pr_encode_l1 itself.  Arguments as pr_encode_l1's; sums is
+// read only at 0.  Returns cudaGetLastError().
+extern "C" int pr_encode_l1_phases(const void* frames, const void* thr, void* bitmap, void* comp,
+                                   void* counts, void* overflow, void* tiles, void* sums,
+                                   int64_t batch, int64_t n_pixels, int64_t out_size,
+                                   int with_values, int stop_after, void* stream) {
+    if (stop_after >= 3) {
+        return pr_encode_l1(frames, thr, bitmap, comp, counts, overflow, tiles, nullptr, 0, batch,
+                            n_pixels, out_size, with_values, nullptr, nullptr, nullptr, nullptr, 0,
+                            stream);
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t n_bytes = (n_pixels + 7) / 8;
+    const int64_t n_tiles = num_tiles(n_pixels);
+    const dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(batch));
+    auto* f = static_cast<const uint16_t*>(frames);
+    auto* t = static_cast<const uint16_t*>(thr);
+    if (stop_after == 0) {
+        encode_load_kernel<<<grid, BLOCK, 0, s>>>(f, t, static_cast<int64_t*>(sums), n_pixels,
+                                                  n_tiles);
+        return static_cast<int>(cudaGetLastError());
+    }
+    encode_bitmap_kernel<<<grid, BLOCK, 0, s>>>(f, t, static_cast<uint8_t*>(bitmap),
+                                                static_cast<int*>(tiles), nullptr, n_pixels,
+                                                n_bytes, n_tiles);
+    if (stop_after == 2) {
+        scan_tiles_kernel<<<static_cast<unsigned>(batch), SCAN_BLOCK, 0, s>>>(
+            static_cast<int*>(tiles), n_tiles, static_cast<int*>(counts),
+            static_cast<uint8_t*>(overflow), with_values ? out_size : -1);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -116,11 +116,19 @@ def load() -> ctypes.CDLL:
             lib.pr_tokens_from_pairs.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
             lib.pr_assemble_split.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, p, i64,
                                               i64, i64, p]
+            lib.pr_encode_l1_phases.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
+                                                ctypes.c_int, ctypes.c_int, p]
+            lib.pr_decode_l1_phases.argtypes = [p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
+            lib.pr_probe_butterfly.argtypes = [p, p, p, ctypes.c_int, i64, i64, p]
+            lib.pr_probe_f32dot.argtypes = [p, p, p, ctypes.c_int, i64, i64, i64, p]
+            lib.pr_probe_mosaic.argtypes = [ctypes.c_int, p, p, p, p, p]
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_bitpack12_words, lib.pr_encode_l1,
                        lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
                        lib.pr_assemble, lib.pr_rans_hist, lib.pr_rans_encode,
                        lib.pr_rans_encode_tokens, lib.pr_rans_decode, lib.pr_posdecode, lib.pr_label_l2l4,
-                       lib.pr_bitmap_positions, lib.pr_tokens_from_pairs, lib.pr_assemble_split):
+                       lib.pr_bitmap_positions, lib.pr_tokens_from_pairs, lib.pr_assemble_split,
+                       lib.pr_encode_l1_phases, lib.pr_decode_l1_phases, lib.pr_probe_butterfly,
+                       lib.pr_probe_f32dot, lib.pr_probe_mosaic):
                 fn.restype = ctypes.c_int
             for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles, lib.pr_pairs_tiles):
                 fn.argtypes = [i64]

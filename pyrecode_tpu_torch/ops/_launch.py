@@ -93,6 +93,19 @@ def num_tiles(n_pixels: int) -> int:
     return int(_build.load().pr_num_tiles(n_pixels))
 
 
+# pixels of one tile of the encode/decode kernels (csrc/common.cuh: 8 warps
+# of 16 words of 32 pixels), for the twins of their per-tile outputs
+TILE_PIXELS = 4096
+
+
+def tile_sums(values: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(B, n) -> (B, n_tiles) sums over consecutive TILE_PIXELS, the last
+    tile zero-padded."""
+    B, n = values.shape
+    padded = torch.nn.functional.pad(values, (0, n_tiles * TILE_PIXELS - n))
+    return padded.reshape(B, n_tiles, TILE_PIXELS).sum(dim=2)
+
+
 def deflate_tiles(n: int) -> int:
     """Tiles of the tokenize / assemble kernels for a row of n bytes or tokens."""
     return int(_build.load().pr_deflate_tiles(n))

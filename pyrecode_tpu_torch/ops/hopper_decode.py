@@ -31,6 +31,8 @@ from .bitpack import unpack_bits
 
 LAUNCHES = _launch.LaunchCounter()
 POSDECODE_LAUNCHES = _launch.LaunchCounter()
+PHASES_LAUNCHES = _launch.LaunchCounter()      # the phase probe's cut-offs (P2)
+PHASES = ("store", "count", "scan", "full")     # decode_l1_phases' cut-offs, in order
 
 
 def _check(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: int) -> None:
@@ -81,6 +83,58 @@ def decode_l1(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: in
                    _launch.ptr(overflow), _launch.ptr(counts), _launch.ptr(tiles),
                    B, n, V)
     return dense, overflow
+
+
+def decode_l1_phases_plain(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: int,
+                           stop_after: str = "full"):
+    """Plain PyTorch version of :func:`decode_l1_phases`, on any device."""
+    _check(bitmap, values, height, width)
+    if stop_after == "full":
+        return decode_l1_plain(bitmap, values, height, width)
+    B, V = values.shape
+    n = height * width
+    mask = unpack_bits(bitmap)[:, :n]
+    if stop_after == "store":
+        return (mask.to(torch.int16).view(torch.uint16).reshape(B, height, width),)
+    tiles = _launch.tile_sums(mask.to(torch.int32), -(-n // _launch.TILE_PIXELS)).to(torch.int32)
+    if stop_after == "count":
+        return (tiles,)
+    counts = tiles.sum(dim=1, dtype=torch.int32)
+    return (torch.cumsum(tiles, dim=1) - tiles).to(torch.int32), counts, counts > V
+
+
+def decode_l1_phases(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: int,
+                     stop_after: str = "full"):
+    """The decode cut after one of its passes (PHASES), for the phase probe
+    (``pyrecode_tpu_torch.tools.probe_decode_phases``; kernel P2, replacing
+    the truncated kernels of tools/probe_decode_phases.py:build_phase_kernel).
+    Returns
+
+    * "store": (mask (B, H, W) uint16,), the bitmap's 0/1 mask: the dense
+      store alone;
+    * "count": (tiles (B, n_tiles) int32,), each tile's set bits;
+    * "scan": (tile offsets (B, n_tiles) int32, counts (B,) int32, overflow
+      (B,) bool);
+    * "full": :func:`decode_l1`'s outputs.
+    """
+    if stop_after not in PHASES:
+        raise ValueError(f"stop_after must be one of {PHASES}, got {stop_after!r}")
+    _check(bitmap, values, height, width)
+    if _launch.on_host(bitmap, values):
+        return decode_l1_phases_plain(bitmap, values, height, width, stop_after)
+    B, V = values.shape
+    n = height * width
+    dev = bitmap.device
+    dense = torch.empty((B, height, width), dtype=torch.uint16, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
+    _launch.launch(PHASES_LAUNCHES, "pr_decode_l1_phases", dev,
+                   _launch.ptr(bitmap), _launch.ptr(values), _launch.ptr(dense),
+                   _launch.ptr(overflow), _launch.ptr(counts), _launch.ptr(tiles),
+                   B, n, V, PHASES.index(stop_after))
+    return {"store": (dense,), "count": (tiles,), "scan": (tiles, counts, overflow),
+            "full": (dense, overflow)}[stop_after]
 
 
 def _check_positions(positions: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,

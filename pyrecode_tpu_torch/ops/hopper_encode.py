@@ -48,7 +48,9 @@ from .compact import stream_compact
 LAUNCHES = _launch.LaunchCounter()
 POSITIONS_LAUNCHES = _launch.LaunchCounter()   # the launches that store positions
 PAIRS_LAUNCHES = _launch.LaunchCounter()       # the launches that store bitmap-byte pairs
+PHASES_LAUNCHES = _launch.LaunchCounter()      # the phase probe's cut-offs (P1)
 MAX_PAIR_BYTES = 1 << 23                        # a pair keeps its byte index in 23 bits
+PHASES = ("load", "bitmap", "scan", "full")     # encode_l1_phases' cut-offs, in order
 
 
 def _check(frames: torch.Tensor, threshold: torch.Tensor, with_values: bool = True,
@@ -157,4 +159,70 @@ def encode_l1(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
         return bitmap, comp, counts, overflow, pos
     if pairs_out:
         return bitmap, comp if with_values else None, counts, overflow, pairs, pair_counts
+    return bitmap, comp if with_values else None, counts, overflow
+
+
+def encode_l1_phases_plain(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
+                           with_values: bool = True, stop_after: str = "full"):
+    """Plain PyTorch version of :func:`encode_l1_phases`, on any device."""
+    _check(frames, threshold, with_values)
+    B, H, W = frames.shape
+    n = H * W
+    n_tiles = -(-n // _launch.TILE_PIXELS)
+    if stop_after == "load":
+        f = _launch.u16_to_i32(frames).reshape(B, n).to(torch.int64)
+        t = _launch.u16_to_i32(threshold).reshape(1, n).to(torch.int64)
+        return (_launch.tile_sums(f - t, n_tiles),)
+    if stop_after == "full":
+        return encode_l1_plain(frames, threshold, out_size, with_values)
+    bitmap, _, counts, overflow = encode_l1_plain(frames, threshold, out_size, with_values)
+    mask = (_launch.u16_to_i32(frames).reshape(B, n) > _launch.u16_to_i32(threshold).reshape(1, n))
+    tiles = _launch.tile_sums(mask.to(torch.int32), n_tiles).to(torch.int32)
+    if stop_after == "bitmap":
+        return bitmap, tiles
+    return bitmap, (torch.cumsum(tiles, dim=1) - tiles).to(torch.int32), counts, overflow
+
+
+def encode_l1_phases(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
+                     with_values: bool = True, stop_after: str = "full"):
+    """The encode cut after one of its passes (PHASES), for the phase probe
+    (``pyrecode_tpu_torch.tools.probe_phases``; kernel P1, replacing the
+    truncated kernels of tools/probe_phases.py:build_phase_kernel).  Returns
+
+    * "load": (sums (B, n_tiles) int64,), frame - threshold summed over each
+      tile of TILE_PIXELS pixels: the dense read of pass 1 alone;
+    * "bitmap": (bitmap, tiles (B, n_tiles) int32 foreground counts): pass 1;
+    * "scan": (bitmap, tile offsets (B, n_tiles) int32, counts, overflow):
+      then the tile scan;
+    * "full": :func:`encode_l1`'s outputs without positions or pairs.
+    """
+    if stop_after not in PHASES:
+        raise ValueError(f"stop_after must be one of {PHASES}, got {stop_after!r}")
+    _check(frames, threshold, with_values)
+    if out_size < 0:
+        raise ValueError(f"out_size must be >= 0, got {out_size}")
+    if _launch.on_host(frames, threshold):
+        return encode_l1_phases_plain(frames, threshold, out_size, with_values, stop_after)
+    B, H, W = frames.shape
+    n = H * W
+    dev = frames.device
+    n_tiles = _launch.num_tiles(n)
+    bitmap = torch.empty((B, (n + 7) // 8), dtype=torch.uint8, device=dev)
+    comp = torch.empty((B, out_size if with_values else 0), dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    tiles = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+    sums = torch.empty((B, n_tiles) if stop_after == "load" else (0,), dtype=torch.int64,
+                       device=dev)
+    _launch.launch(PHASES_LAUNCHES, "pr_encode_l1_phases", dev,
+                   _launch.ptr(frames), _launch.ptr(threshold), _launch.ptr(bitmap),
+                   _launch.ptr(comp), _launch.ptr(counts), _launch.ptr(overflow),
+                   _launch.ptr(tiles), _launch.ptr(sums), B, n, out_size, int(with_values),
+                   PHASES.index(stop_after))
+    if stop_after == "load":
+        return (sums,)
+    if stop_after == "bitmap":
+        return bitmap, tiles
+    if stop_after == "scan":
+        return bitmap, tiles, counts, overflow
     return bitmap, comp if with_values else None, counts, overflow

@@ -86,7 +86,7 @@ class ReCoDeWriter:
 
         ``device_entropy`` entropy-codes on the device (mode 1): scheme 0 by
         the deflate kernels, scheme 12 by the rANS kernels (at L1 with
-        9..12-bit values; at L2-L4 the streams in gap mode from the bitmap ->
+        8..12-bit values; at L2-L4 the streams in gap mode from the bitmap ->
         positions kernel).  None, the default, turns it on where it applies
         when the device is CUDA and ``use_tpu`` is set, as the JAX writer does
         on a TPU; True forces it (on the CPU it runs the kernels' twins) and
@@ -205,10 +205,11 @@ class ReCoDeWriter:
         if self._rc_operation_mode != 1 or self._scheme not in (0, 12):
             return ValueError(
                 "device_entropy needs rc_operation_mode 1 and compression_scheme 0 or 12")
-        if self._scheme == 12 and self._reduction_level == 1 and not 9 <= self._bit_depth <= 12:
+        if self._scheme == 12 and self._reduction_level == 1 and not 8 <= self._bit_depth <= 12:
             return NotImplementedError(
-                "scheme-12 device entropy of L1 values outside 9..12 bits is not ported "
-                "(ROADMAP Queue 3: the JAX writer codes 8-bit values with the bitmap's positions)")
+                f"scheme-12 device entropy of {self._bit_depth}-bit L1 values is not ported: the "
+                "symbol kernels code 8..12-bit values (4096 bins); pass device_entropy=False "
+                "to code them on the host (ROADMAP Queue 1)")
         return None
 
     def _resolve_device_entropy(self, device_entropy) -> bool:
@@ -371,12 +372,15 @@ class ReCoDeWriter:
     def run(self, data=None, profile_dir: Optional[str] = None) -> dict:
         """Encode this node's slice of the current chunk; returns run metrics.
 
-        ``profile_dir`` is not supported yet: the port's profiler hooks come
-        with ROADMAP Queue 1 item 9.
+        ``profile_dir`` captures a ``torch.profiler`` trace of the whole run
+        (host and device; :func:`.profiling.trace`) as a Chrome trace file in
+        that directory.
         """
         if profile_dir:
-            raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP Queue 1 item 9)")
+            from .profiling import trace
+
+            with trace(profile_dir):
+                return self._run_impl(data)
         return self._run_impl(data)
 
     def _run_impl(self, data=None) -> dict:
@@ -544,7 +548,8 @@ class ReCoDeWriter:
             return [(c, None, 0) for c in cbm], t_bm, timedelta(0)
         stt = datetime.now()
         if self._scheme == 12 and self._reduction_level == 1:
-            # the values as bit_depth-wide symbols (symbol mode)
+            # the values as bit_depth-wide symbols (symbol mode); 8-bit values
+            # are the packed bytes, 8-bit symbols, as the host path codes them
             cpx = rans.rans_symbols_batch_device(res.packed, plens, self._bit_depth)
         elif self._scheme == 12:
             cpx = self._code_gaps(res.packed, plens)

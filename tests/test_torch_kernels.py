@@ -18,7 +18,8 @@ from pyrecode_tpu_torch import InputParams, native
 from pyrecode_tpu_torch.codecs import rans
 from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tables
 from pyrecode_tpu_torch.ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode,
-                                    hopper_gaps, hopper_label, hopper_rans, hopper_tokens)
+                                    hopper_gaps, hopper_label, hopper_probes, hopper_rans,
+                                    hopper_tokens)
 from chip_smoke import label_edge_frames, make_puddle_frames
 
 pytestmark = pytest.mark.gpu
@@ -369,3 +370,81 @@ def test_assemble_split_matches_twin(cuda):
     raws, _, _ = _streams()
     assert deflate_batch_device(s, lengths, split_assemble=True) == \
         [native.deflate_sparse(r) for r in raws]
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+@pytest.mark.parametrize("phase", hopper_encode.PHASES)
+def test_encode_l1_phases_match_twin(cuda, shape, phase):
+    """Each cut-off of the encode against its twin; "full" also against
+    encode_l1, and "bitmap" against encode_l1's bitmap."""
+    frames, thr = _frames(0.2, shape, seed=51)
+    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+    for out_size in (shape[0] * shape[1], 100):   # fits; overflows
+        before = hopper_encode.PHASES_LAUNCHES.value
+        got = hopper_encode.encode_l1_phases(f, t, out_size, True, phase)
+        assert hopper_encode.PHASES_LAUNCHES.value == before + 1
+        _equal(got, hopper_encode.encode_l1_phases_plain(f, t, out_size, True, phase))
+        full = hopper_encode.encode_l1(f, t, out_size)
+        if phase == "full":
+            _equal(got, full)
+        elif phase != "load":
+            _equal(got[:1], full[:1])
+
+
+@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+@pytest.mark.parametrize("phase", hopper_decode.PHASES)
+def test_decode_l1_phases_match_twin(cuda, shape, phase):
+    frames, thr = _frames(0.3, shape, seed=52)
+    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+    bitmap, comp, _, _ = hopper_encode.encode_l1(f, t, shape[0] * shape[1])
+    for values in (comp, comp[:, :100].contiguous()):   # fits; overflows
+        before = hopper_decode.PHASES_LAUNCHES.value
+        got = hopper_decode.decode_l1_phases(bitmap, values, *shape, stop_after=phase)
+        assert hopper_decode.PHASES_LAUNCHES.value == before + 1
+        _equal(got, hopper_decode.decode_l1_phases_plain(bitmap, values, *shape, phase))
+        if phase == "full":
+            _equal(got, hopper_decode.decode_l1(bitmap, values, *shape))
+
+
+@pytest.mark.parametrize("sub", [32, 512, 2048])
+@pytest.mark.parametrize("variant", hopper_probes.BUTTERFLY_VARIANTS)
+def test_probe_butterfly_matches_twin(cuda, sub, variant):
+    rng = np.random.default_rng(53)
+    for dens in (0.0, 0.1, 0.6, 1.0):
+        m = (rng.random((5, sub)) < dens).astype(np.int32)
+        v = rng.integers(1, 513, (5, sub)).astype(np.int32) * m
+        mt, vt = torch.from_numpy(m).to(cuda), torch.from_numpy(v).to(cuda)
+        got = hopper_probes.butterfly(mt, vt, variant)
+        _equal([got], [hopper_probes.butterfly_plain(mt, vt, variant)])
+        want = np.zeros_like(v)
+        for r in range(5):
+            fg = v[r][m[r] > 0]
+            want[r, :fg.size] = fg
+        assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("mode", hopper_probes.F32DOT_MODES)
+def test_probe_f32dot_matches_twin(cuda, mode):
+    """Bit for bit against the twin on one-hot products of 21-bit integers;
+    exact but for one TF32 pass, which rounds to 11 significant bits."""
+    rng = np.random.default_rng(54)
+    lut = rng.integers(0, 1 << 21, (32, 24)).astype(np.float32)
+    idx = rng.integers(0, 24, 136)
+    oh = (idx[:, None] == np.arange(24)[None, :]).astype(np.float32)
+    a, b = torch.from_numpy(lut).to(cuda), torch.from_numpy(oh).to(cuda)
+    got = hopper_probes.f32dot(a, b, mode)
+    _equal([got.view(torch.int32)], [hopper_probes.f32dot_plain(a, b, mode).view(torch.int32)])
+    err = np.abs(got.cpu().numpy() - lut[:, idx]).max()
+    assert (err == 0) if mode != "tf32" else (0 < err <= 512)
+
+
+@pytest.mark.parametrize("probe", sorted(hopper_probes.MOSAIC_PROBES))
+def test_probe_mosaic_matches_twin(cuda, probe):
+    from pyrecode_tpu_torch.tools.probe_mosaic import cases
+
+    ins, want = cases()[probe]
+    ts = [torch.from_numpy(x).to(cuda) for x in ins]
+    got = hopper_probes.mosaic(probe, *ts)
+    _equal(got, hopper_probes.mosaic_plain(probe, *ts))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.cpu().numpy(), w)

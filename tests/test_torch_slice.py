@@ -252,8 +252,11 @@ def test_unported_options_raise(tmp_path):
     assert writer(compression_scheme=12, reduction_level=3)._device_entropy is True
     assert writer(compression_scheme=12, reduction_level=2, source_bit_depth=8,
                   target_bit_depth=8)._device_entropy is True
+    # 8-bit L1 values are 8-bit symbols; 13..16 bits outgrow the kernels' 4096 bins
+    assert writer(compression_scheme=12, source_bit_depth=8,
+                  target_bit_depth=8)._device_entropy is True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        writer(compression_scheme=12, source_bit_depth=8, target_bit_depth=8)
+        writer(compression_scheme=12, source_bit_depth=13, target_bit_depth=13)
     assert port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
                              input_params=_params(shape=(2, 16, 16), num_threads=1,
                                                   reduction_level=2),
@@ -261,9 +264,9 @@ def test_unported_options_raise(tmp_path):
     w = port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
                           input_params=params, device="cpu")
     w.start()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.run(data, profile_dir=str(tmp_path / "trace"))
+    assert w.run(data, profile_dir=str(tmp_path / "trace"))["run_frames"] == 2
     w.close()
+    assert len(list((tmp_path / "trace").glob("*.pt.trace.json"))) == 1
     # scheme-12 reads run on the device path now (the twins on the CPU)
     merged = _write(JaxWriter, tmp_path / "s12", data, dark,
                     _params(shape=(2, 16, 16), num_threads=1, compression_scheme=12),

@@ -1,0 +1,201 @@
+"""The port's probe kernels (P1-P5) on the CPU, where each wrapper runs its
+plain twin, against the JAX package's probes and kernels in interpret mode
+and against numpy, exactly; and each probe tool end to end with
+``--device cpu``.
+
+* P1 / P2, the phase cut-offs of the encode and decode, at 2 x 256^2: "full"
+  against the port's encode_l1 / decode_l1 twins and the Pallas kernels,
+  "bitmap" against the Pallas bitmap, "load" against an int64 numpy sum,
+  "store" against the unpacked bitmap, the tile counts and offsets against
+  numpy;
+* P5, the butterfly, against the JAX probe's own formulations inside
+  ``pl.pallas_call(..., interpret=True)`` and the stable-compaction oracle;
+* P4, the f32 product, against ``lut[:, idx]``, ``jax.lax.dot_general`` at
+  HIGHEST and a numpy emulation of TF32 rounding;
+* P3, the eight lowering probes, against numpy.
+
+tests/test_torch_kernels.py holds each kernel against its twin on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from pyrecode_tpu.ops import pallas_decode, pallas_encode
+from pyrecode_tpu.ops.bitpack import bitpack_values as jax_bitpack_values
+from pyrecode_tpu_torch.ops import hopper_decode, hopper_encode, hopper_probes
+from pyrecode_tpu_torch.ops._launch import TILE_PIXELS
+from pyrecode_tpu_torch.tools import (probe_butterfly, probe_decode_phases, probe_f32dot,
+                                      probe_mosaic, probe_phases)
+from tools.probe_butterfly import make_variants
+
+SHAPE = (2, 256, 256)
+OUT_SIZE = 4096
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """Frames at ~1% foreground, a threshold, and the Pallas encode of them."""
+    rng = np.random.default_rng(71)
+    frames = np.where(rng.random(SHAPE) < 0.01, rng.integers(1, 4096, SHAPE), 0).astype(np.uint16)
+    thr = rng.integers(0, 32, SHAPE[1:]).astype(np.uint16)
+    jax_out = [np.array(a) for a in pallas_encode.encode_l1_pallas(
+        frames, thr, out_size=OUT_SIZE, bucket=2, interpret=True)]
+    return frames, thr, jax_out
+
+
+def _tiles(x):
+    """numpy per-tile sums of (B, n) over TILE_PIXELS pixels, as int64."""
+    B, n = x.shape
+    pad = np.zeros((B, -n % TILE_PIXELS), x.dtype)
+    return np.concatenate([x, pad], axis=1).reshape(B, -1, TILE_PIXELS).sum(axis=2, dtype=np.int64)
+
+
+@pytest.mark.parametrize("phase", hopper_encode.PHASES)
+def test_encode_phases_match_jax_and_numpy(batch, phase):
+    frames, thr, (jb, jc, jn, jo) = batch
+    got = [t.numpy() if t is not None else None for t in hopper_encode.encode_l1_phases(
+        torch.from_numpy(frames), torch.from_numpy(thr), OUT_SIZE, True, phase)]
+    f = frames.reshape(2, -1).astype(np.int64)
+    t = thr.reshape(1, -1).astype(np.int64)
+    mask = (f > t).astype(np.int64)
+    if phase == "load":
+        assert got[0].dtype == np.int64
+        assert np.array_equal(got[0], _tiles(f - t))
+        assert np.array_equal(got[0].sum(axis=1), (f - t).sum(axis=1))
+        return
+    assert np.array_equal(got[0], jb)                       # the bitmap
+    if phase == "bitmap":
+        assert np.array_equal(got[1], _tiles(mask))
+    elif phase == "scan":
+        tiles = _tiles(mask)
+        assert np.array_equal(got[1], np.cumsum(tiles, axis=1) - tiles)
+        assert np.array_equal(got[2], jn) and not got[3].any()
+    else:
+        twin = hopper_encode.encode_l1(torch.from_numpy(frames), torch.from_numpy(thr), OUT_SIZE)
+        for g, w in zip(got, twin):
+            assert np.array_equal(g, w.numpy())
+        assert np.array_equal(got[2], jn) and not got[3].any() and not jo.any()
+        for i in range(2):
+            n = int(jn[i])
+            assert np.array_equal(got[1][i, :n], jc[i, :n]) and not got[1][i, n:].any()
+
+
+@pytest.fixture(scope="module")
+def decoded(batch):
+    frames, thr, (jb, jc, jn, _) = batch
+    packed = np.array(jax_bitpack_values(jc.astype(np.uint32), 12))
+    jdense, jovf = pallas_decode.decode_l1_pallas(jb, packed, *SHAPE[1:], 12, bucket=2,
+                                                  interpret=True)
+    return jb, jc, np.asarray(jdense), np.asarray(jovf), np.where(frames > thr, frames - thr, 0)
+
+
+@pytest.mark.parametrize("phase", hopper_decode.PHASES)
+def test_decode_phases_match_jax_and_numpy(decoded, phase):
+    bitmap, values, jdense, jovf, want = decoded
+    got = [t.numpy() for t in hopper_decode.decode_l1_phases(
+        torch.from_numpy(bitmap), torch.from_numpy(values), *SHAPE[1:], stop_after=phase)]
+    bits = np.unpackbits(bitmap, axis=1, bitorder="little")[:, :SHAPE[1] * SHAPE[2]]
+    tiles = _tiles(bits.astype(np.int64))
+    if phase == "store":
+        assert got[0].dtype == np.uint16 and np.array_equal(got[0].reshape(2, -1), bits)
+    elif phase == "count":
+        assert np.array_equal(got[0], tiles)
+    elif phase == "scan":
+        assert np.array_equal(got[0], np.cumsum(tiles, axis=1) - tiles)
+        assert np.array_equal(got[1], tiles.sum(axis=1)) and not got[2].any()
+    else:
+        assert np.array_equal(got[0], jdense) and np.array_equal(got[0], want)
+        assert not got[1].any() and not jovf.any()
+        twin = hopper_decode.decode_l1(torch.from_numpy(bitmap), torch.from_numpy(values),
+                                       *SHAPE[1:])
+        assert np.array_equal(got[0], twin[0].numpy())
+
+
+@pytest.mark.parametrize("variant", hopper_probes.BUTTERFLY_VARIANTS)
+def test_butterfly_twin_matches_the_pallas_probe(variant):
+    """SUB 512, the JAX probe's four densities from default_rng(1): the twin
+    equals the JAX probe's formulation run by pl.pallas_call in interpret
+    mode, and the stable compaction."""
+    fn = make_variants()[variant]
+    S, SUB = probe_butterfly.S, 512
+
+    def kernel(m_ref, v_ref, o_ref):
+        o_ref[...] = fn(m_ref[...], v_ref[...], S, SUB) & 0xFFFF
+
+    call = pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct((S, SUB), jnp.int32),
+                          interpret=True)
+    for dens, m, v in probe_butterfly.make_cases(np.random.default_rng(1), SUB):
+        got = hopper_probes.butterfly(torch.from_numpy(m), torch.from_numpy(v), variant).numpy()
+        assert np.array_equal(got, np.asarray(call(jnp.asarray(m), jnp.asarray(v)))), dens
+        assert np.array_equal(got, probe_butterfly.oracle(m, v)), dens
+
+
+def _rna(x: np.ndarray) -> np.ndarray:
+    """numpy TF32 rounding, nearest with ties away from zero."""
+    bits = x.view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("mode", hopper_probes.F32DOT_MODES)
+def test_f32dot_twin(mode):
+    lut, oh, want = probe_f32dot.make_inputs()
+    got = hopper_probes.f32dot(torch.from_numpy(lut), torch.from_numpy(oh), mode).numpy()
+    if mode == "tf32":
+        assert np.array_equal(got, _rna(lut) @ _rna(oh).T)
+        err = np.abs(got - want).max()
+        assert 0 < err <= 512          # 11 significant bits of values below 2**21
+    else:
+        assert np.array_equal(got, want)
+    if mode == "fp32":
+        jax_out = jax.lax.dot_general(jnp.asarray(lut), jnp.asarray(oh), (((1,), (1,)), ((), ())),
+                                      preferred_element_type=jnp.float32, precision="highest")
+        assert np.array_equal(got.view(np.int32), np.asarray(jax_out).view(np.int32))
+
+
+@pytest.mark.parametrize("probe", sorted(hopper_probes.MOSAIC_PROBES))
+def test_mosaic_twins_match_numpy(probe):
+    ins, want = probe_mosaic.cases()[probe]
+    got = hopper_probes.mosaic(probe, *(torch.from_numpy(x) for x in ins))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.from_numpy(w).dtype and np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("tool, argv", [
+    (probe_phases, ["--size", "128", "--batch", "2"]),
+    (probe_decode_phases, ["--size", "128", "--batch", "2"]),
+    (probe_butterfly, []), (probe_f32dot, []), (probe_mosaic, []),
+])
+def test_probe_tools_on_the_cpu(capsys, tool, argv):
+    """Each tool runs its twins with --device cpu, measures no time, and
+    prints its lines: one per phase, variant, precision or probe."""
+    assert tool.main(["--device", "cpu", *argv]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert any("not measured" in line for line in out)
+    n = {probe_phases: 4, probe_decode_phases: 4, probe_butterfly: 8, probe_f32dot: 3,
+         probe_mosaic: 8}[tool]
+    assert sum(("equal to its twin" in line) or (": OK" in line) or ("compiled" in line)
+               for line in out) == n
+
+
+def test_probe_wrappers_reject_bad_arguments():
+    frames = torch.zeros((1, 8, 8), dtype=torch.uint16)
+    thr = torch.zeros((8, 8), dtype=torch.uint16)
+    with pytest.raises(ValueError, match="stop_after"):
+        hopper_encode.encode_l1_phases(frames, thr, 64, True, "cumsum")
+    with pytest.raises(ValueError, match="stop_after"):
+        hopper_decode.decode_l1_phases(torch.zeros((1, 8), dtype=torch.uint8),
+                                       torch.zeros((1, 4), dtype=torch.int32), 8, 8, "bitmap")
+    rows = torch.zeros((2, 48), dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        hopper_probes.butterfly(rows, rows, "packed_or")
+    with pytest.raises(ValueError, match="variant"):
+        hopper_probes.butterfly(rows[:, :32].contiguous(), rows[:, :32].contiguous(), "packed")
+    with pytest.raises(ValueError, match="mma"):
+        hopper_probes.f32dot(torch.zeros((20, 8)), torch.zeros((8, 8)), "tf32")
+    with pytest.raises(ValueError, match="input 0"):
+        hopper_probes.mosaic("a", torch.zeros((8, 64)), torch.zeros((32, 128)))
