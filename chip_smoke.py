@@ -77,7 +77,12 @@ the device, every stream through the host rans.decompress, the read exact.
 Phase 3 also holds the label kernel (all five L2/L4 modes) and the bitmap
 -> positions kernel against their twins on a batch of puddle frames, its
 bitmaps and statistics streams, and an edge battery, and the four kernels
-of phase 9 on the slice batch and their own edge batteries.
+of phase 9 on the slice batch and their own edge batteries.  The label
+kernel's battery includes puddles across its tile borders and frames of
+the tile batteries' shapes (label_tile_shapes) and one 1 x 2^20 row; the
+positions decode has a span battery (posdecode_span_battery).  Both
+kernels' device operations of one call are timed from one profiler trace
+(device_passes).
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -86,8 +91,10 @@ The last lines are the card, the per-kernel JSON object and the result:
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from collections import Counter
@@ -251,6 +258,57 @@ def _spiral(height: int, width: int) -> np.ndarray:
             return out
 
 
+def _tile_border_masks(height: int, width: int) -> dict:
+    """Puddles across the label kernel's tile borders (hopper_label.TILE_H x
+    TILE_W), name -> (h, w) bool, for a frame that has such borders: pairs
+    and diagonal pairs across each horizontal and each vertical border, a
+    diagonal line through the tiles; and at each corner of four tiles a
+    puddle in all four that meets only through diagonal pixels, the corner's
+    two diagonals in turn."""
+    th, tw = hopper_label.TILE_H, hopper_label.TILE_W
+    ys, xs = range(th, height, th), range(tw, width, tw)
+    if not ys and not xs:
+        return {}
+    across = np.zeros((height, width), bool)
+    corners = np.zeros((height, width), bool)
+
+    def put(mask, pixels):
+        for r, c in pixels:
+            if 0 <= r < height and 0 <= c < width:
+                mask[r, c] = True
+
+    for y in ys:   # row y is a tile's top row
+        for c in range(3, width, 37):
+            put(across, [(y - 1, c), (y, c)])                     # N
+            put(across, [(y - 1, c + 9), (y, c + 10)])            # NW
+            put(across, [(y - 1, c + 21), (y, c + 20)])           # NE
+    for x in xs:   # column x is a tile's left column
+        for r in range(0, height, 7):
+            put(across, [(r, x - 1), (r, x)])                     # W
+            put(across, [(r + 2, x - 1), (r + 3, x)])             # NW
+            put(across, [(r + 4, x), (r + 5, x - 1)])             # NE of the left tile's column
+    k = min(height, width)
+    across[np.arange(k), np.arange(k)] = True
+    for i, y in enumerate(ys):
+        for j, x in enumerate(xs):
+            if (i + j) % 2 == 0:   # joined through (y - 1, x - 1) and (y, x)
+                put(corners, [(y - 1, x - 1), (y, x), (y - 2, x), (y, x - 2)])
+            else:                  # joined through (y - 1, x) and (y, x - 1)
+                put(corners, [(y - 1, x), (y, x - 1), (y - 2, x - 1), (y, x + 1)])
+    return {"tile borders": across, "tile corners": corners}
+
+
+def label_tile_shapes() -> dict:
+    """The label kernel's tile batteries, name -> (h, w): just over one tile
+    in each dimension; 2 x 3 tiles and a ragged edge (W % 8 == 0, so
+    16-byte loads, while rows cross mask words); ragged in both (W % 8 !=
+    0, the kernel's unaligned path)."""
+    th, tw = hopper_label.TILE_H, hopper_label.TILE_W
+    return {"just over one tile": (th + 1, tw + 1),
+            "2 x 3 tiles and a ragged edge": (2 * th + 5, 3 * tw + 8),
+            "ragged in both": (2 * th + 7, 2 * tw + 37)}
+
+
 def label_edge_frames(rng, height: int, width: int) -> dict:
     """The label kernel's edge battery on a zero threshold, name -> (h, w)
     u16 frame (0 = background): an empty frame; a fully foreground one (one
@@ -259,20 +317,23 @@ def label_edge_frames(rng, height: int, width: int) -> dict:
     overflow the TPU kernel's halo; a U whose arms join only at the bottom
     and a comb of them; puddles on every frame edge, including pixels at the
     end of one row and the start of the next (adjacent indices, not
-    neighbours); a stride-2 grid (the most puddles 8-connectivity allows); a
-    checkerboard (one puddle through diagonals); blobs of tied values; and,
-    at 256^2 and below, a spiral."""
+    neighbours); runs over a row's end and the next row's start (across a
+    mask word where W % 32 != 0); a stride-2 grid (the most puddles
+    8-connectivity allows); a checkerboard (one puddle through diagonals);
+    blobs of tied values; at 256^2 and below, a spiral; and, where the frame
+    has tile borders of the label kernel, puddles across them
+    (_tile_border_masks)."""
     H, W = height, width
     vals = rng.integers(1, 4096, (H, W)).astype(np.uint16)
     frames = {"empty": np.zeros((H, W), np.uint16), "full foreground": vals.copy(),
               "full, equal values": np.full((H, W), 7, np.uint16)}
-    shapes = np.zeros((H, W), bool)
+    shapes = np.zeros((max(H, 40), max(W, 41)), bool)    # cropped to the frame below
     shapes[2:26, W // 2] = True                           # 24 rows tall
-    shapes[H - 3, 5:17] = True                            # a 12-pixel line
+    shapes[max(H - 3, 0), 5:17] = True                    # a 12-pixel line
     shapes[5:25, 3] = shapes[5:25, 9] = shapes[24, 3:10] = True   # U, joined at the bottom
     shapes[30:40, 20:41:2] = True                         # a comb joined at the bottom
     shapes[39, 20:41] = True
-    frames["tall, line, U, comb"] = np.where(shapes, vals, 0).astype(np.uint16)
+    frames["tall, line, U, comb"] = np.where(shapes[:H, :W], vals, 0).astype(np.uint16)
     edges = np.zeros((H, W), bool)
     edges[0, ::3] = edges[-1, 1::3] = True
     edges[::6, 0] = edges[::6, -1] = True
@@ -280,6 +341,10 @@ def label_edge_frames(rng, height: int, width: int) -> dict:
     edges[2::6, -1] = edges[3::6, 0] = True               # a row's end, the next row's start
     edges[1::6, 1] = edges[4::6, -2] = True               # diagonal neighbours of edge pixels
     frames["edges"] = np.where(edges, vals, 0).astype(np.uint16)
+    runs = np.zeros(H * W, bool)
+    for r in range(1, H, 5):
+        runs[max(r * W - 5, 0):r * W + 4] = True          # 5 at a row's end, 4 at the next's start
+    frames["row-end runs"] = np.where(runs.reshape(H, W), vals, 0).astype(np.uint16)
     grid = np.zeros((H, W), bool)
     grid[::2, ::2] = True
     frames["stride-2 grid"] = np.where(grid, vals, 0).astype(np.uint16)
@@ -293,7 +358,64 @@ def label_edge_frames(rng, height: int, width: int) -> dict:
     frames["tied blobs"] = np.where(blobs, rng.integers(1, 4, (H, W)), 0).astype(np.uint16)
     if H * W <= 256 * 256:
         frames["spiral"] = np.where(_spiral(H, W), vals, 0).astype(np.uint16)
+    for name, mask in _tile_border_masks(H, W).items():
+        frames[name] = np.where(mask, vals, 0).astype(np.uint16)
     return frames
+
+
+def posdecode_span_battery(rng) -> list:
+    """The positions decode's span battery, (what, positions (B, OUT) i32,
+    values (B, OUT) i32, counts (B,) i32, height, width, flagged frames) of
+    numpy arrays, spans of hopper_decode.POSDECODE_SPAN pixels: positions on
+    the first and the last pixel of each span, an empty span beside a full
+    one (count = width), count 0, H * W % 8 != 0 (frames and spans off the
+    16-byte alignment), and repeated positions, flagged.  The first case has
+    a geometry the JAX kernel takes (a power-of-two width, whole chunks of
+    rows)."""
+    S = hopper_decode.POSDECODE_SPAN
+    cases = []
+
+    def case(what, height, width, out, rows):
+        n = height * width
+        pos = np.zeros((len(rows), out), np.int32)
+        counts = np.zeros(len(rows), np.int32)
+        for b, row in enumerate(rows):
+            pos[b, :len(row)] = row
+            counts[b] = len(row)
+        vals = rng.integers(0, 4096, pos.shape).astype(np.int32)
+        assert all(np.all((r >= 0) & (r < n)) for r in rows)
+        return [what, pos, vals, counts, height, width, [False] * len(rows)]
+
+    def sparse(n, k, edges):
+        return np.union1d(rng.choice(n, k, replace=False), edges).astype(np.int32)
+
+    H, W = 2 * S // 64, 64
+    n = H * W
+    cases.append(case("span edges, empty and full spans, count 0 and = width", H, W, S, [
+        sparse(n, 300, [0, S - 1, S, n - 1]),
+        np.arange(S, 2 * S),
+        np.zeros(0, np.int32),
+        sparse(n, n // 100, [S - 1, S])]))
+    H, W = 101, 167     # H * W % 8 == 3: three spans, frames off the alignment
+    n = H * W
+    cases.append(case("H*W % 8 != 0", H, W, 3 * S, [
+        sparse(n, 200, [0, S - 1, S, 2 * S - 1, 2 * S, n - 1]),
+        np.arange(2 * S, n),
+        sparse(n, 5000, [S - 1]),
+        np.arange(0, n, 3)]))
+    cases.append(case("37x29 frames", 37, 29, 37 * 29, [
+        sparse(37 * 29, 50, [0, 37 * 29 - 1]), np.arange(37 * 29),
+        np.zeros(0, np.int32)]))
+    rep = case("repeated positions", 2 * S // 64, 64, S, [
+        sparse(2 * S, 300, [S - 1, S])] * 4)
+    pos, counts = rep[1], rep[3]
+    pos[0, 7] = pos[0, 6]                                  # inside a span
+    k = int(np.searchsorted(pos[2, :counts[2]], S))
+    pos[2, k] = pos[2, k - 1]                              # on a span's first pixel
+    pos[3, counts[3] - 1] = pos[3, counts[3] - 2]          # the last one
+    rep[6] = [True, False, True, True]
+    cases.append(rep)
+    return [tuple(c) for c in cases]
 
 
 def expect(condition, message) -> None:
@@ -532,6 +654,15 @@ def check_rans(device, rng, check, frames, thr, out_size, packed):
           "corrupt positions")
     expect(flags.tolist() == [False, True, True, True],
            f"posdecode overflow flags {flags.tolist()}")
+    for what, *arrays, h, w, flagged in posdecode_span_battery(rng):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        got_dense, got_flags = hopper_decode.posdecode(*args, h, w)
+        want_dense, want_flags = hopper_decode.posdecode_plain(*args, h, w)
+        clean = ~want_flags     # a flagged frame's dense output is unspecified
+        check("posdecode", [got_dense.view(torch.int16)[clean], got_flags],
+              [want_dense.view(torch.int16)[clean], want_flags], f"span battery: {what}")
+        expect(got_flags.tolist() == flagged,
+               f"posdecode flags {got_flags.tolist()} on {what}, expected {flagged}")
     n_pos = int(counts.sum())
     idx = torch.where(valid, pos, H * W).to(torch.int64)
     src = comp.to(torch.int16)
@@ -670,15 +801,19 @@ def check_rans_tokens(device, rng, check, bitmap):
 def label_batteries(device, rng, height: int, width: int):
     """The label kernel's inputs beyond the puddle batch: (what, frames,
     threshold, out_size) of the edge battery at the slice's shape, a spiral
-    and the battery at 256^2 (the twin's rounds stay few there), and puddle
-    frames of 37x29 and of a width not a multiple of 128."""
+    and the battery at 256^2 (the twin's rounds stay few there), at the tile
+    batteries' shapes (label_tile_shapes) and on one 1 x 2^20 row (tiles
+    that cover part of a row); and puddle frames of 37x29, of a width not a
+    multiple of 128 and of the tile batteries' shapes."""
     cases = []
-    for h, w in {(height, width), (min(height, 256), min(width, 256))}:
+    tile_shapes = list(label_tile_shapes().values())
+    for h, w in [*{(height, width), (min(height, 256), min(width, 256))}, *tile_shapes,
+                 (1, 1 << 20)]:
         edge = label_edge_frames(rng, h, w)
         cases.append((f"edge battery {h}x{w} ({len(edge)} frames)",
                       torch.from_numpy(np.stack(list(edge.values()))).to(device),
                       torch.zeros((h, w), dtype=torch.uint16, device=device), h * w))
-    for h, w in ((37, 29), (min(height, 96), 1000)):
+    for h, w in ((37, 29), (min(height, 96), 1000), *tile_shapes):
         f, d = make_puddle_frames(rng, 3, h, w, hits=40000 * 16)
         cases.append((f"{h}x{w} puddle frames", torch.from_numpy(f).to(device),
                       torch.from_numpy(d + EPSILON).to(device), h * w))
@@ -874,6 +1009,36 @@ def check_alternates(device, rng, check, frames, thr, out_size, enc_cases, bitma
     return timed
 
 
+def device_passes(fn) -> dict:
+    """Device ms of each kernel (by its name), memset and memcpy of one call
+    of ``fn`` after a warm-up call, in launch order, from one
+    profiling.trace."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):   # a trace can come back without its device intervals
+        with tempfile.TemporaryDirectory(prefix="tmp_chip_smoke_", dir=REPO) as tmp:
+            with trace(tmp):
+                torch.cuda._sleep(1000)   # a kernel of its own ahead of the call's first
+                torch.cuda.synchronize()
+                fn()
+                torch.cuda.synchronize()
+            events = json.loads(next(Path(tmp).glob("*.pt.trace.json")).read_text())[
+                "traceEvents"]
+        device = sorted((e for e in events if e.get("ph") == "X"
+                         and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+                         and "spin_kernel" not in e.get("name", "")),
+                        key=lambda e: float(e["ts"]))
+        if device:
+            break
+    expect(device, "three traces of the call hold no device interval")
+    passes = {}
+    for e in device:
+        name = re.search(r"(\w+)\s*\(", e["name"]) if e["cat"] == "kernel" else None
+        key = name.group(1) if name else e["cat"]
+        passes[key] = passes.get(key, 0.0) + float(e["dur"]) / 1e3
+    return passes
+
+
 def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, plain_reps=3):
     """Phase 3: every kernel against its twin (exactly) on edge cases and at
     the slice's shapes; returns {name: {max_abs_err, ms, plain_ms}}."""
@@ -1032,6 +1197,12 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     out["label_l2l4"]["mode_ms"] = {m: cuda_event_time(fn, reps, 1)
                                     for m, fn in label_modes.items()}
     print(f"  label_l2l4       kernel ms by mode: {out['label_l2l4']['mode_ms']}")
+    # each pass (and each memset) of one call, from one profiler trace
+    for name, fn in (("label_l2l4", label_modes["l2sum"]),
+                     ("posdecode", rans_timed["slice gaps"]["posdecode"][0])):
+        out[name]["pass_ms"] = device_passes(fn)
+        print(f"  {name:16s} device operations of one call (torch.profiler, ms): "
+              f"{out[name]['pass_ms']}")
     for name, entry in alt_timed.items():
         out[name] = measure(entry, err[name], reps, plain_reps)
         report(name, "slice bitmaps" if name in ("tokens_from_pairs", "assemble_split") else
@@ -1690,6 +1861,44 @@ def trace_writer(device, data, dark, work_dir: Path) -> dict:
     return result
 
 
+def kernel_passes(device, reps: int = 20) -> dict:
+    """The redesigned kernels' times on batches like phase 3's, made from
+    SEED: CUDA-event ms of encode_l2l4 in each mode on 4 x 4096^2 puddle
+    frames and of posdecode on a 4 x 4096^2 slice at ~1% beside the
+    scatter_ call, and the device ms of each operation of one call of each
+    (device_passes).  It times whichever pyrecode_tpu_torch is imported, so
+    it also measures an older tree put first on sys.path (PERF.md)."""
+    rng = np.random.default_rng(SEED)
+    frames_np, dark = make_frames(rng, 4, 4096, 4096)
+    frames = torch.from_numpy(frames_np).to(device)
+    thr = torch.from_numpy(dark + EPSILON).to(device)
+    n = 4096 * 4096
+    size = _bucket_for(int(hopper_encode.encode_l1_plain(frames, thr, 0, with_values=False)[2]
+                           .max()), n)
+    _, comp, counts, _, pos = hopper_encode.encode_l1(frames, thr, size, True, True, 12)
+    idx = torch.where(torch.arange(pos.shape[1], device=device)[None, :] < counts[:, None],
+                      pos, n).to(torch.int64)
+    src = comp.to(torch.int16)
+    decode = (lambda: hopper_decode.posdecode(pos, comp, counts, 4096, 4096))
+    puddles_np, pdark = make_puddle_frames(rng, 4, 4096, 4096)
+    puddles = torch.from_numpy(puddles_np).to(device)
+    pthr = torch.from_numpy(pdark + EPSILON).to(device)
+    psize = _bucket_for(int(hopper_encode.encode_l1_plain(puddles, pthr, 0, with_values=False)[2]
+                            .max()), n)
+    return {
+        "posdecode_ms": cuda_event_time(decode, reps, 3),
+        "scatter_ms": cuda_event_time(
+            lambda: torch.zeros((4, n + 1), dtype=torch.int16, device=device).scatter_(1, idx, src),
+            reps, 3),
+        "posdecode_passes": device_passes(decode),
+        "label_mode_ms": {m: cuda_event_time(
+            lambda m=m: hopper_label.encode_l2l4(puddles, pthr, m, psize, 4095), reps, 3)
+            for m in hopper_label.MODES},
+        "label_passes": device_passes(
+            lambda: hopper_label.encode_l2l4(puddles, pthr, "l2sum", psize, 4095)),
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU")
@@ -1818,4 +2027,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["passes"]:   # the redesigned kernels' times alone
+        print(card())
+        print(json.dumps(kernel_passes(torch.device("cuda", 0))))
+    else:
+        main()

@@ -90,6 +90,8 @@ def build(verbose: bool = False) -> Path:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use; one instance per process."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -130,7 +132,8 @@ def load() -> ctypes.CDLL:
                        lib.pr_encode_l1_phases, lib.pr_decode_l1_phases, lib.pr_probe_butterfly,
                        lib.pr_probe_f32dot, lib.pr_probe_mosaic):
                 fn.restype = ctypes.c_int
-            for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles, lib.pr_pairs_tiles):
+            for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles, lib.pr_pairs_tiles,
+                       lib.pr_label_tiles):
                 fn.argtypes = [i64]
                 fn.restype = i64
             lib.pr_split_window_words.argtypes = []

@@ -67,10 +67,13 @@ def launch(counter: LaunchCounter, fn_name: str, device: torch.device, *args) ->
     stream (appended as the last argument), count it, and raise on a CUDA
     error from the launch."""
     lib = _build.load()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        counter.add()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    counter.add()
+    if device.index is None or device.index == torch.cuda.current_device():
         rc = getattr(lib, fn_name)(*args, stream)
+    else:   # the launch goes to the calling thread's current device
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"{fn_name}: CUDA error {rc} ({lib.pr_error_string(rc).decode()})")

@@ -31,6 +31,9 @@ from .bitpack import unpack_bits
 
 LAUNCHES = _launch.LaunchCounter()
 POSDECODE_LAUNCHES = _launch.LaunchCounter()
+# output pixels one block of the positions decode owns (csrc/posdecode.cu:
+# SPAN), for batteries that put positions on the spans' edges
+POSDECODE_SPAN = 8192
 PHASES_LAUNCHES = _launch.LaunchCounter()      # the phase probe's cut-offs (P2)
 PHASES = ("store", "count", "scan", "full")     # decode_l1_phases' cut-offs, in order
 
@@ -184,8 +187,8 @@ def posdecode(positions: torch.Tensor, values: torch.Tensor, counts: torch.Tenso
     B, out = positions.shape
     dev = positions.device
     dense = torch.empty((B, height, width), dtype=torch.uint16, device=dev)
-    overflow = torch.empty(B, dtype=torch.uint8, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
     _launch.launch(POSDECODE_LAUNCHES, "pr_posdecode", dev, _launch.ptr(positions),
                    _launch.ptr(values), _launch.ptr(counts), _launch.ptr(dense),
                    _launch.ptr(overflow), B, out, height * width)
-    return dense, overflow.to(torch.bool)
+    return dense, overflow

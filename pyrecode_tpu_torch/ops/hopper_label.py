@@ -23,12 +23,16 @@ from __future__ import annotations
 
 import torch
 
-from . import _launch
+from . import _build, _launch
 from .bitpack import pack_bits
 from .cc_label import label_components
 from .segment import centroid_pixels_to_mask, l2_summary_stats, l4_centroid_pixels
 
 LAUNCHES = _launch.LaunchCounter()
+# the dense pass's tile (csrc/label_l2l4.cu: TILE_H rows of TILE_W pixels,
+# runs of set bits taken within each row's TILE_W segment), for batteries
+# that put puddles across its borders
+TILE_H, TILE_W = 32, 256
 
 MODES = {"l2max": 0, "l2sum": 1, "l4w": 2, "l4u": 3, "l4m": 4}
 # (reduction level, L2 statistic or L4 scheme) -> mode, as pallas_label._MODE_BY_CONFIG
@@ -94,14 +98,16 @@ def encode_l2l4(frames: torch.Tensor, threshold: torch.Tensor, mode: str, out_si
     n_bytes = (n + 7) // 8
     dev = frames.device
     is_l2 = mode.startswith("l2")
-    # L4 ORs centroid bits into 32-bit words of the whole zeroed buffer
-    words = torch.zeros(-(-B * n_bytes // 4), dtype=torch.int32, device=dev)
+    # L4 ORs centroid bits into 32-bit words of the whole buffer, whose bytes
+    # the kernel zeroes first; no buffer here needs a fill
+    words = torch.empty(-(-B * n_bytes // 4), dtype=torch.int32, device=dev)
     bitmap = words.view(torch.uint8)[:B * n_bytes].view(B, n_bytes)
     mask = bitmap if is_l2 else torch.empty((B, n_bytes), dtype=torch.uint8, device=dev)
     parent = torch.empty((B, n), dtype=torch.int32, device=dev)
-    tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
+    tiles = torch.empty((B, int(_build.load().pr_label_tiles(n))), dtype=torch.int32,
+                        device=dev)
     n_acc = 3 if mode in ("l4w", "l4u") else 1
-    acc = torch.zeros((B, out_size, n_acc), dtype=torch.int64, device=dev)
+    acc = torch.empty((B, out_size, n_acc), dtype=torch.int64, device=dev)
     stats = torch.empty((B, out_size), dtype=torch.int32, device=dev) if is_l2 else None
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)

@@ -20,7 +20,8 @@ from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tabl
 from pyrecode_tpu_torch.ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode,
                                     hopper_gaps, hopper_label, hopper_probes, hopper_rans,
                                     hopper_tokens)
-from chip_smoke import label_edge_frames, make_puddle_frames
+from chip_smoke import (label_edge_frames, label_tile_shapes, make_puddle_frames,
+                        posdecode_span_battery)
 
 pytestmark = pytest.mark.gpu
 
@@ -173,6 +174,23 @@ def test_posdecode_matches_twin(cuda):
     assert hopper_decode.posdecode(*args, H, W)[1].tolist() == [True, False, True]
 
 
+def test_posdecode_span_battery_matches_twin(cuda):
+    """Positions on span edges, empty and full spans, count 0 and = width,
+    H*W % 8 != 0 and repeated positions: one launch a call; the flags equal
+    the twin's and the expected ones, the dense frames of unflagged frames
+    the twin's."""
+    for what, *arrays, h, w, flagged in posdecode_span_battery(np.random.default_rng(21)):
+        args = [torch.from_numpy(a).to(cuda) for a in arrays]
+        before = hopper_decode.POSDECODE_LAUNCHES.value
+        dense, overflow = hopper_decode.posdecode(*args, h, w)
+        assert hopper_decode.POSDECODE_LAUNCHES.value == before + 1, what
+        want_dense, want_overflow = hopper_decode.posdecode_plain(*args, h, w)
+        assert overflow.tolist() == want_overflow.tolist() == flagged, what
+        clean = ~want_overflow
+        assert torch.equal(dense.view(torch.int16)[clean], want_dense.view(torch.int16)[clean]), \
+            what
+
+
 @pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
 def test_decode_l1_matches_twin(cuda, shape):
     frames, thr = _frames(0.3, shape, seed=14)
@@ -275,14 +293,22 @@ def test_card_slice_matches_host(cuda, tmp_path):
 @pytest.mark.parametrize("mode", sorted(hopper_label.MODES))
 def test_label_l2l4_matches_twin(cuda, mode):
     """Puddle frames (out_size that fits, and one that overflows), a ragged
-    geometry, and the edge battery on a zero threshold; the CUDA path
-    launches the kernel, not the twin."""
+    geometry, and the edge battery on a zero threshold at 64x128, at the
+    tile batteries' shapes (just over one tile, 2 x 3 tiles and a ragged
+    edge, ragged in both) and on a 1 x 2^20 row, with puddle frames of the
+    tile shapes; the CUDA path launches the kernel, not the twin."""
     rng = np.random.default_rng(31)
     frames, dark = make_puddle_frames(rng, 3, 96, 160, hits=40000 * 64)
     ragged, rdark = make_puddle_frames(rng, 2, 37, 29, hits=40000 * 64)
     edge = np.stack(list(label_edge_frames(rng, 64, 128).values()))
     cases = [(frames, dark + 2, 96 * 160), (frames, dark + 2, 20), (ragged, rdark + 2, 37 * 29),
              (edge, np.zeros((64, 128), np.uint16), 64 * 128)]
+    for h, w in [*label_tile_shapes().values(), (1, 1 << 20)]:
+        tiles = np.stack(list(label_edge_frames(rng, h, w).values()))
+        cases.append((tiles, np.zeros((h, w), np.uint16), h * w))
+    for h, w in label_tile_shapes().values():
+        puddles, pdark = make_puddle_frames(rng, 2, h, w, hits=40000 * 64)
+        cases.append((puddles, pdark + 2, h * w))
     for f, t, out_size in cases:
         f, t = torch.from_numpy(f).to(cuda), torch.from_numpy(t).to(cuda)
         before = hopper_label.LAUNCHES.value

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import label_edge_frames, make_puddle_frames
+from chip_smoke import label_edge_frames, label_tile_shapes, make_puddle_frames
 from pyrecode_tpu import oracle
 from pyrecode_tpu.ops import cc_label as jax_cc_label
 from pyrecode_tpu.ops import compact as jax_compact
@@ -29,6 +29,11 @@ SHAPE = (64, 128)
 CONFIGS = [(2, "max"), (2, "sum"), (4, "weighted_average"), (4, "unweighted"), (4, "max")]
 EDGE = label_edge_frames(np.random.default_rng(3), *SHAPE)
 EDGE_WIDE = label_edge_frames(np.random.default_rng(4), 128, 256)
+# the edge battery at the shapes of the CUDA kernel's tile batteries, puddles
+# across its tile borders included
+TILE_SHAPES = label_tile_shapes()
+TILES = {name: label_edge_frames(np.random.default_rng(11 + i), *shape)
+         for i, (name, shape) in enumerate(TILE_SHAPES.items())}
 
 
 def _puddles(batch=3, shape=SHAPE, seed=0):
@@ -60,6 +65,25 @@ def test_label_components_matches_jax_and_scipy(case):
     for i in range(mask.shape[0]):
         want, num = oracle.label_components(mask[i])
         assert int(counts[i]) == num and np.array_equal(labels[i].numpy(), want)
+
+
+@pytest.mark.parametrize("battery", list(TILES))
+def test_tile_battery_labels_match_jax_and_scipy(battery):
+    """The labelling twin on the tile batteries (frames just over one tile,
+    2 x 3 tiles and a ragged edge, ragged in both; puddles across the tile
+    borders, joined only at corner diagonals, runs over row ends) against
+    the JAX labelling and scipy's; the spiral against scipy's only (the JAX
+    labelling takes one round a pixel of its ~20k-pixel path)."""
+    names = list(TILES[battery])
+    mask = np.stack([TILES[battery][k] for k in names]) > 0
+    labels, counts = cc_label.label_components(_t(mask))
+    flat = [i for i, k in enumerate(names) if k != "spiral"]
+    jl, jc = jax_cc_label.label_components(mask[flat])
+    assert np.array_equal(labels.numpy()[flat], np.asarray(jl))
+    assert np.array_equal(counts.numpy()[flat], np.asarray(jc))
+    for i in range(mask.shape[0]):
+        want, num = oracle.label_components(mask[i])
+        assert int(counts[i]) == num and np.array_equal(labels[i].numpy(), want), names[i]
 
 
 @pytest.mark.parametrize("level,name", CONFIGS)
@@ -113,18 +137,22 @@ def _oracle_check(frames, thr, level, name, bitmap, stats, counts):
             assert not stats[i, n:].any()
 
 
-@pytest.mark.parametrize("battery", ["puddles", "edge 64x128", "edge 128x256", "37x29"])
+@pytest.mark.parametrize("battery", ["puddles", "edge 64x128", "edge 128x256", "37x29",
+                                     *TILES, "tile puddles"])
 @pytest.mark.parametrize("level,name", CONFIGS)
 def test_encode_l2l4_matches_oracle(level, name, battery):
     """The kernel's twin (the CPU path of the wrapper) against
     oracle.reduce_frame, including puddles taller and wider than the TPU
-    kernel's halo, and ragged geometry."""
+    kernel's halo, ragged geometry, and the CUDA kernel's tile batteries
+    (with puddle frames of 2 x 3 tiles and a ragged edge)."""
     if battery == "puddles":
         frames, thr = _puddles(seed=2)
     elif battery == "37x29":
         frames, thr = _puddles(shape=(37, 29), seed=6)
+    elif battery == "tile puddles":
+        frames, thr = _puddles(shape=TILE_SHAPES["2 x 3 tiles and a ragged edge"], seed=12)
     else:
-        edge = EDGE if battery == "edge 64x128" else EDGE_WIDE
+        edge = {"edge 64x128": EDGE, "edge 128x256": EDGE_WIDE}.get(battery) or TILES[battery]
         frames = np.stack(list(edge.values()))
         thr = np.zeros(frames.shape[1:], np.uint16)
     n = frames.shape[1] * frames.shape[2]

@@ -8,6 +8,7 @@ ones at m >= 65536 symbols, where the device coders engage.  Every
 comparison is exact bytes.
 """
 
+import re
 import zlib
 
 import numpy as np
@@ -19,6 +20,9 @@ from pyrecode_tpu.codecs import rans as jrans
 from pyrecode_tpu.ops import pallas_decode, pallas_encode, pallas_rans as prk
 from pyrecode_tpu_torch.codecs import rans as trans
 from pyrecode_tpu_torch.ops import hopper_decode, hopper_encode, hopper_rans as hr
+from chip_smoke import posdecode_span_battery
+
+SPANS = posdecode_span_battery(np.random.default_rng(26))
 
 NPAD = 2 * prk.CH_R      # the TPU kernels take multiples of 8192 symbols
 
@@ -188,6 +192,29 @@ def test_posdecode_matches_pallas():
                                             H, W)
     assert not overflow.any()
     assert np.array_equal(got.numpy(), np.asarray(dense))
+
+
+@pytest.mark.parametrize("case", range(len(SPANS)), ids=[re.sub(r"\W+", "_", c[0]) for c in SPANS])
+def test_posdecode_span_battery(case):
+    """The positions decode's twin on the CUDA kernel's span battery: span
+    edges, empty and full spans, count 0 and = width, H*W % 8 != 0 and
+    repeated positions (flagged).  Unflagged frames equal dense[pos] =
+    values; at the JAX kernel's geometry (a power-of-two width) they also
+    equal pallas_decode.decode_l1_from_positions in interpret mode."""
+    what, pos, vals, counts, H, W, flagged = SPANS[case]
+    dense, overflow = hopper_decode.posdecode_plain(
+        *(torch.from_numpy(a) for a in (pos, vals, counts)), H, W)
+    assert overflow.tolist() == flagged
+    clean = ~np.array(flagged)
+    want = np.zeros((len(counts), H * W), np.uint16)
+    for b in np.flatnonzero(clean):
+        want[b, pos[b, :counts[b]]] = vals[b, :counts[b]]
+    assert np.array_equal(dense.numpy().reshape(len(counts), -1)[clean], want[clean])
+    if W & (W - 1) == 0:
+        jdense, jovf = pallas_decode.decode_l1_from_positions(pos, vals, counts, H, W, bucket=2,
+                                                             interpret=True)
+        assert not np.asarray(jovf)[clean].any()
+        assert np.array_equal(dense.numpy()[clean], np.asarray(jdense)[clean])
 
 
 def test_posdecode_flags_corrupt_positions():
