@@ -80,9 +80,11 @@ bitmaps and statistics streams, and an edge battery, and the four kernels
 of phase 9 on the slice batch and their own edge batteries.  The label
 kernel's battery includes puddles across its tile borders and frames of
 the tile batteries' shapes (label_tile_shapes) and one 1 x 2^20 row; the
-positions decode has a span battery (posdecode_span_battery).  Both
-kernels' device operations of one call are timed from one profiler trace
-(device_passes).
+positions decode has a span battery (posdecode_span_battery).  The device
+operations of one call of the label kernel, the positions decode and the
+three tokenizers (tokenize, tokenize_compact, tokens_from_pairs, on the
+slice bitmaps) are timed from one profiler trace each (device_passes); the
+pairs tokenizer's must be its own three kernels, adler32 included.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -170,6 +172,8 @@ SCHEME12_KERNELS = ("encode_l1", "encode_l1_positions", "bitpack12", "rans_hist"
 MULTIDEVICE_KERNELS = ("encode_l1", "bitpack12", "label_l2l4", "tokenize", "assemble",
                        "rans_encode_tokens", "rans_decode", "bitunpack12", "decode_l1")
 ALTERNATES_KERNELS = ("encode_l1_pairs", "bitpack12_words", "tokens_from_pairs", "assemble_split")
+# the device operations of one tokens_from_pairs call
+TOKENS_FROM_PAIRS_PASSES = ("tfp_count_kernel", "scan_tiles_kernel", "tfp_scatter_kernel")
 TOOL_KERNELS = ("encode_l1_phases", "decode_l1_phases", "probe_mosaic", "probe_f32dot",
                 "probe_butterfly")
 MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
@@ -438,7 +442,7 @@ def measure(entry, err: int, reps: int, plain_reps: int) -> dict:
     """CUDA-event times of a kernel, its twin and the library call (if any),
     and the kernel's bound: the bytes it must move over the card's memory
     rate (every kernel here does a few integer operations per byte)."""
-    kernel, plain, nbytes, library = entry[:4]
+    kernel, plain, nbytes, library = entry
     return {"max_abs_err": err, "ms": cuda_event_time(kernel, reps, 1),
             "plain_ms": cuda_event_time(plain, plain_reps, 1),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -1000,8 +1004,7 @@ def check_alternates(device, rng, check, frames, thr, out_size, enc_cases, bitma
         "tokens_from_pairs": (
             lambda: hopper_tokens.tokens_from_pairs(pairs, pcounts, n, bound),
             lambda: hopper_tokens.tokens_from_pairs_plain(pairs, pcounts, n, bound),
-            4 * int(pcounts.sum()) + io_bytes(pcounts, tfp), None,
-            lambda: hopper_tokens.adler_from_pairs(pairs, pcounts, n)),
+            4 * int(pcounts.sum()) + io_bytes(pcounts, tfp), None),
         "bitpack12_words": (lambda: hopper_bitpack.bitpack12_words(comp),
                             lambda: hopper_bitpack.bitpack12_words_plain(comp),
                             io_bytes(comp, words), None),
@@ -1009,10 +1012,19 @@ def check_alternates(device, rng, check, frames, thr, out_size, enc_cases, bitma
     return timed
 
 
+def _pass_name(event) -> str:
+    """A device interval's short name: a kernel's own name without its
+    namespace, template arguments and parameters; else its category."""
+    if event["cat"] != "kernel":
+        return event["cat"]
+    name = event["name"].replace("(anonymous namespace)::", "").removeprefix("void ")
+    return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip() or "kernel"
+
+
 def device_passes(fn) -> dict:
-    """Device ms of each kernel (by its name), memset and memcpy of one call
-    of ``fn`` after a warm-up call, in launch order, from one
-    profiling.trace."""
+    """Device ms of each kernel, memset and memcpy of one call of ``fn``
+    after a warm-up call, in launch order, from one profiling.trace; a name
+    met again in the call gets " #2", " #3", ..."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):   # a trace can come back without its device intervals
@@ -1031,11 +1043,11 @@ def device_passes(fn) -> dict:
         if device:
             break
     expect(device, "three traces of the call hold no device interval")
-    passes = {}
+    passes, seen = {}, Counter()
     for e in device:
-        name = re.search(r"(\w+)\s*\(", e["name"]) if e["cat"] == "kernel" else None
-        key = name.group(1) if name else e["cat"]
-        passes[key] = passes.get(key, 0.0) + float(e["dur"]) / 1e3
+        name = _pass_name(e)
+        seen[name] += 1
+        passes[name if seen[name] == 1 else f"{name} #{seen[name]}"] = float(e["dur"]) / 1e3
     return passes
 
 
@@ -1197,21 +1209,22 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     out["label_l2l4"]["mode_ms"] = {m: cuda_event_time(fn, reps, 1)
                                     for m, fn in label_modes.items()}
     print(f"  label_l2l4       kernel ms by mode: {out['label_l2l4']['mode_ms']}")
-    # each pass (and each memset) of one call, from one profiler trace
-    for name, fn in (("label_l2l4", label_modes["l2sum"]),
-                     ("posdecode", rans_timed["slice gaps"]["posdecode"][0])):
-        out[name]["pass_ms"] = device_passes(fn)
-        print(f"  {name:16s} device operations of one call (torch.profiler, ms): "
-              f"{out[name]['pass_ms']}")
     for name, entry in alt_timed.items():
         out[name] = measure(entry, err[name], reps, plain_reps)
         report(name, "slice bitmaps" if name in ("tokens_from_pairs", "assemble_split") else
                "frames" if name == "encode_l1_pairs" else "slice values")
-    # the wrapper's adler32 (torch reductions over the pairs) alone
-    out["tokens_from_pairs"]["adler_ms"] = cuda_event_time(alt_timed["tokens_from_pairs"][4],
-                                                           reps, 1)
-    print(f"  tokens_from_pairs of which adler32 (torch ops): "
-          f"{out['tokens_from_pairs']['adler_ms']:.4f} ms")
+    # each pass (and each memset) of one call, from one profiler trace
+    for name, fn in (("label_l2l4", label_modes["l2sum"]),
+                     ("posdecode", rans_timed["slice gaps"]["posdecode"][0]),
+                     ("tokenize", deflate_timed["slice bitmaps"]["tokenize"][0]),
+                     ("tokenize_compact", deflate_timed["slice bitmaps"]["tokenize_compact"][0]),
+                     ("tokens_from_pairs", alt_timed["tokens_from_pairs"][0])):
+        out[name]["pass_ms"] = device_passes(fn)
+        print(f"  {name:16s} device operations of one call (torch.profiler, ms): "
+              f"{out[name]['pass_ms']}")
+    # adler32 comes out of the pairs tokenizer's own kernels, no torch op
+    expect(set(out["tokens_from_pairs"]["pass_ms"]) == set(TOKENS_FROM_PAIRS_PASSES),
+           f"tokens_from_pairs ran {sorted(out['tokens_from_pairs']['pass_ms'])}")
     return out
 
 
@@ -1861,12 +1874,28 @@ def trace_writer(device, data, dark, work_dir: Path) -> dict:
     return result
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Host milliseconds of one call of ``fn``: ``reps`` calls queued back to
+    back after a synchronize, timed without waiting for the device (too few
+    launches to fill the queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / reps * 1e3
+
+
 def kernel_passes(device, reps: int = 20) -> dict:
     """The redesigned kernels' times on batches like phase 3's, made from
     SEED: CUDA-event ms of encode_l2l4 in each mode on 4 x 4096^2 puddle
-    frames and of posdecode on a 4 x 4096^2 slice at ~1% beside the
-    scatter_ call, and the device ms of each operation of one call of each
-    (device_passes).  It times whichever pyrecode_tpu_torch is imported, so
+    frames, of posdecode on a 4 x 4096^2 slice at ~1% beside the scatter_
+    call, and of tokenize, tokenize_compact (at the token bound the
+    writer's density hint gives) and tokens_from_pairs on that slice's
+    bitmaps with their host ms (host_ms), and the device ms of each
+    operation of one call of each (device_passes).  It times whichever pyrecode_tpu_torch is imported, so
     it also measures an older tree put first on sys.path (PERF.md)."""
     rng = np.random.default_rng(SEED)
     frames_np, dark = make_frames(rng, 4, 4096, 4096)
@@ -1885,7 +1914,23 @@ def kernel_passes(device, reps: int = 20) -> dict:
     pthr = torch.from_numpy(pdark + EPSILON).to(device)
     psize = _bucket_for(int(hopper_encode.encode_l1_plain(puddles, pthr, 0, with_values=False)[2]
                             .max()), n)
+    bitmap, _, _, _, pairs, pcounts = hopper_encode.encode_l1(frames, thr, size, pairs_out=size)
+    nb = bitmap.shape[1]
+    full = torch.full((4,), nb, dtype=torch.int32, device=device)
+    # deflate_batch_device's hint route: 1.6 x the densest stream's tokens a byte
+    density = int(hopper_deflate.tokenize(bitmap, full)[1][:, :286].sum(dim=1).max()) / nb
+    bound = quantize_bound(max(int(nb * density * 1.6), 1), hopper_deflate.TILE)
+    pbound = pairs_token_bound(pcounts, nb)
+    tokenizers = {
+        "tokenize": lambda: hopper_deflate.tokenize(bitmap, full),
+        "tokenize_compact": lambda: hopper_deflate.tokenize_compact(bitmap, full, bound),
+        "tokens_from_pairs": lambda: hopper_tokens.tokens_from_pairs(pairs, pcounts, nb, pbound),
+    }
     return {
+        "tokenize_compact_bound": bound,
+        **{f"{name}_ms": cuda_event_time(fn, reps, 3) for name, fn in tokenizers.items()},
+        **{f"{name}_host_ms": host_ms(fn) for name, fn in tokenizers.items()},
+        **{f"{name}_passes": device_passes(fn) for name, fn in tokenizers.items()},
         "posdecode_ms": cuda_event_time(decode, reps, 3),
         "scatter_ms": cuda_event_time(
             lambda: torch.zeros((4, n + 1), dtype=torch.int16, device=device).scatter_(1, idx, src),

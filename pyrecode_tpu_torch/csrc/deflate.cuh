@@ -3,7 +3,9 @@
 // value per thread for blocks of BLOCK threads (common.cuh).  Each
 // reduction or scan takes WARPS elements of the caller's shared memory as
 // scratch and may be called again with the same scratch: it synchronises
-// the block before it returns.
+// the block before it returns.  The two tokenizers (tokenize.cu,
+// tokens_from_pairs.cu) also share the histogram row, the length symbols
+// and the adler32 of a stream from its blocks' sums.
 #pragma once
 
 #include "common.cuh"
@@ -21,16 +23,6 @@ constexpr int NO_TOKEN = 512;
 static_assert(TILE % BLOCK == 0, "a thread owns whole elements of its tile");
 
 __host__ __device__ inline int64_t deflate_tiles(int64_t n) { return (n + TILE - 1) / TILE; }
-
-struct MaxOp {
-    template <class T>
-    __device__ __forceinline__ T operator()(T a, T b) const { return a > b ? a : b; }
-};
-
-struct MinOp {
-    template <class T>
-    __device__ __forceinline__ T operator()(T a, T b) const { return a < b ? a : b; }
-};
 
 struct SumOp {
     template <class T>
@@ -76,6 +68,70 @@ __device__ T block_exclusive_scan(T v, Op op, T identity, T* scratch) {
     }
     __syncthreads();
     return op(across, excl);
+}
+
+// Tokenizer histogram row: symbol s in slot s ((s >> 5, s & 31) row-major);
+// 0..285 the literal/length symbols, end of block not counted.
+constexpr int HIST_BINS = 512;
+constexpr int SYM_TAKE258 = 285;   // length symbol of a take-258 match
+
+// Length symbol (257..285) of a distance-1 match of take 3..258, in closed
+// form: codes 0..7 take one length each, then four codes a power of two.
+__device__ __forceinline__ int length_symbol(int take) {
+    if (take == 258) return SYM_TAKE258;
+    const int l = take - 3;
+    if (l < 8) return 257 + l;
+    const int e = 29 - __clz(l);   // floor(log2 l) - 2
+    return 257 + 4 * e + (l >> e);
+}
+
+// One shared-memory atomic a warp for a count every lane holds.
+__device__ __forceinline__ void warp_add(int* bin, int v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(bin, v);
+}
+
+// Adds a block's shared histogram to its stream's row, nonzero bins only.
+// Call after a barrier that follows the block's last shared atomic.
+__device__ __forceinline__ void flush_hist(const int* hist_s, int* hist_row) {
+    for (int k = threadIdx.x; k < HIST_BINS; k += BLOCK) {
+        if (hist_s[k]) atomicAdd(&hist_row[k], hist_s[k]);
+    }
+}
+
+// adler32 of an n-byte stream x from its tiles' partial sums: each tile
+// stores S1 = sum x_i and SN = sum (n - i) x_i over its bytes, mod 65521,
+// as int32 at part[2 * tile] and part[2 * tile + 1]; then one block of the
+// next pass adds them: adler32 = B << 16 | A, A = 1 + S1, B = n + SN
+// (mod 65521).
+constexpr long long ADLER_MOD = 65521;
+
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+    return v;
+}
+
+__device__ __forceinline__ int adler_mod(long long v) {
+    return static_cast<int>((v % ADLER_MOD + ADLER_MOD) % ADLER_MOD);
+}
+
+// The whole block adds a stream's n_tiles partial pairs; thread 0 writes
+// its adler32.  scratch: WARPS elements of the caller's shared memory.
+__device__ __forceinline__ void adler_from_parts(const int* part, int n_tiles, int64_t n,
+                                                 long long* scratch, long long* adler) {
+    long long a = 0, c = 0;
+    for (int j = threadIdx.x; j < n_tiles; j += BLOCK) {
+        a += part[2 * j];
+        c += part[2 * j + 1];
+    }
+    a = block_all_reduce(a, SumOp(), scratch);
+    c = block_all_reduce(c, SumOp(), scratch);
+    if (threadIdx.x == 0) {
+        *adler = (static_cast<long long>((n % ADLER_MOD + c) % ADLER_MOD) << 16) |
+                 ((1 + a) % ADLER_MOD);
+    }
 }
 
 }  // namespace

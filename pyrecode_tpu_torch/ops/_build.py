@@ -102,8 +102,8 @@ def load() -> ctypes.CDLL:
             lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64, i64,
                                          ctypes.c_int, p, p, p, p, i64, p]
             lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
-            lib.pr_tokenize.argtypes = [p, p, p, p, p, p, p, i64, i64, p]
-            lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
+            lib.pr_tokenize.argtypes = [p, p, p, p, p, p, i64, i64, p]
+            lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_assemble.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, i64, i64, i64,
                                         p]
             lib.pr_rans_hist.argtypes = [p, p, p, i64, i64, p]
@@ -132,8 +132,8 @@ def load() -> ctypes.CDLL:
                        lib.pr_encode_l1_phases, lib.pr_decode_l1_phases, lib.pr_probe_butterfly,
                        lib.pr_probe_f32dot, lib.pr_probe_mosaic):
                 fn.restype = ctypes.c_int
-            for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles, lib.pr_pairs_tiles,
-                       lib.pr_label_tiles):
+            for fn in (lib.pr_num_tiles, lib.pr_deflate_tiles, lib.pr_tokenize_tiles,
+                       lib.pr_pairs_tiles, lib.pr_label_tiles):
                 fn.argtypes = [i64]
                 fn.restype = i64
             lib.pr_split_window_words.argtypes = []

@@ -67,6 +67,11 @@ def _check_streams(streams: torch.Tensor, lengths: torch.Tensor) -> None:
 # ------------------------------------------------------------------ tokenize
 
 
+def _tokenize_tiles(npad: int) -> int:
+    """Tiles of the tokenize kernels for rows of npad bytes."""
+    return int(_build.load().pr_tokenize_tiles(npad))
+
+
 def tokenize_plain(streams: torch.Tensor, lengths: torch.Tensor):
     """Plain PyTorch version of :func:`tokenize`, on any device."""
     _check_streams(streams, lengths)
@@ -128,12 +133,11 @@ def tokenize(streams: torch.Tensor, lengths: torch.Tensor):
     tok = torch.empty((B, npad), dtype=torch.uint16, device=dev)
     hist = torch.empty((B, HIST_BINS), dtype=torch.int32, device=dev)
     adler = torch.empty(B, dtype=torch.int64, device=dev)
-    last = torch.empty((B, _launch.deflate_tiles(npad)), dtype=torch.int32, device=dev)
-    sums = torch.empty((B, 2), dtype=torch.int64, device=dev)
+    # each tile's last run start and adler32 sums
+    scratch = torch.empty(3 * B * _tokenize_tiles(npad), dtype=torch.int32, device=dev)
     _launch.launch(TOKENIZE_LAUNCHES, "pr_tokenize", dev,
                    _launch.ptr(streams), _launch.ptr(lengths), _launch.ptr(tok),
-                   _launch.ptr(hist), _launch.ptr(adler), _launch.ptr(last), _launch.ptr(sums),
-                   B, npad)
+                   _launch.ptr(hist), _launch.ptr(adler), _launch.ptr(scratch), B, npad)
     return tok, hist, adler
 
 
@@ -172,15 +176,14 @@ def tokenize_compact(streams: torch.Tensor, lengths: torch.Tensor, out_bound: in
     adler = torch.empty(B, dtype=torch.int64, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    tiles = _launch.deflate_tiles(npad)
-    last = torch.empty((B, tiles), dtype=torch.int32, device=dev)
-    tile_counts = torch.empty((B, tiles), dtype=torch.int32, device=dev)
-    sums = torch.empty((B, 2), dtype=torch.int64, device=dev)
+    tiles = _tokenize_tiles(npad)
+    scratch = torch.empty(3 * B * tiles, dtype=torch.int32, device=dev)
+    status = torch.empty(B * tiles + 1, dtype=torch.int64, device=dev)   # a word a tile, a ticket
     _launch.launch(TOKENIZE_COMPACT_LAUNCHES, "pr_tokenize_compact", dev,
                    _launch.ptr(streams), _launch.ptr(lengths), _launch.ptr(comp),
                    _launch.ptr(hist), _launch.ptr(adler), _launch.ptr(counts),
-                   _launch.ptr(overflow), _launch.ptr(last), _launch.ptr(tile_counts),
-                   _launch.ptr(sums), B, npad, out_bound)
+                   _launch.ptr(overflow), _launch.ptr(scratch), _launch.ptr(status), B, npad,
+                   out_bound)
     return comp, hist, adler, counts, overflow
 
 

@@ -23,9 +23,10 @@ Differences from the JAX function:
 * overflow (more tokens than ``tok_bound``) shows in the counts, which stay
   exact, as does the histogram; the caller retries with the exact bound.
 
-Adler32 needs no kernel: it is a closed form over the pairs (A = 1 + sum v,
-B = n + sum (n - idx) v, mod 65521), computed with torch reductions on the
-pairs' device, as the JAX package computes it at the XLA level.
+Adler32 is a closed form over the pairs (A = 1 + sum v, B = n + sum (n -
+idx) v, mod 65521), which the JAX package computes at the XLA level; here
+the kernel's count pass sums it per tile and its scatter pass adds the
+tiles, and :func:`adler_from_pairs` is the plain version's.
 """
 
 from __future__ import annotations
@@ -145,11 +146,12 @@ def tokens_from_pairs(pairs: torch.Tensor, counts: torch.Tensor, n: int, tok_bou
     hist = torch.empty((B, HIST_BINS), dtype=torch.int32, device=dev)
     tok_counts = torch.empty(B, dtype=torch.int32, device=dev)
     flag = torch.empty(B, dtype=torch.bool, device=dev)
-    tiles = torch.empty((B, int(_build.load().pr_pairs_tiles(np_))), dtype=torch.int32,
-                        device=dev)
-    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    adler = torch.empty(B, dtype=torch.int64, device=dev)
+    # each tile's token count and adler32 sums, then the overflow bytes of the scan
+    tiles = int(_build.load().pr_pairs_tiles(np_))
+    scratch = torch.empty(3 * B * tiles + -(-B // 4), dtype=torch.int32, device=dev)
     _launch.launch(LAUNCHES, "pr_tokens_from_pairs", dev,
                    _launch.ptr(pairs), _launch.ptr(counts), _launch.ptr(tok), _launch.ptr(hist),
-                   _launch.ptr(tok_counts), _launch.ptr(flag), _launch.ptr(tiles),
-                   _launch.ptr(overflow), B, np_, n, tok_bound)
-    return tok, hist, tok_counts, flag, adler_from_pairs(pairs, counts, n)
+                   _launch.ptr(tok_counts), _launch.ptr(flag), _launch.ptr(adler),
+                   _launch.ptr(scratch), B, np_, n, tok_bound)
+    return tok, hist, tok_counts, flag, adler

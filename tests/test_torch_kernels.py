@@ -231,6 +231,43 @@ def test_tokenize_compact_matches_twin(cuda):
                hopper_deflate.tokenize_compact_plain(s, n, bound))
 
 
+def _edge_streams(seed=18):
+    """Streams at the tokenizer's edges, in rows of npad % 16 != 0 bytes: a
+    run change exactly at a tile boundary and one at a tile's last byte,
+    zero runs of 258 k + 1..6 bytes across a tile boundary (the take-255
+    and take-4/5 cases), a stream ending at a tile boundary, lengths that
+    are not multiples of 16, random bytes and an empty stream."""
+    rng = np.random.default_rng(seed)
+    t = hopper_deflate.TILE
+    raws = [b"A" * t + b"B" * 100, b"A" * (t - 1) + b"B" + b"C" * 50, b"\x05" * (2 * t),
+            rng.integers(0, 256, 7777, dtype=np.uint8).tobytes(), b""]
+    raws += [b"X" * (t - 100) + b"\x00" * (258 * k + r) + b"Y" for k in (1, 2) for r in range(1, 7)]
+    npad = max(map(len, raws)) + 13
+    npad += (5 - npad) % 16
+    streams = np.zeros((len(raws), npad), np.uint8)
+    for i, raw in enumerate(raws):
+        streams[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    return raws, streams, np.array([len(r) for r in raws], np.int32)
+
+
+def test_tokenize_edges_match_twin(cuda):
+    raws, streams, lengths = _edge_streams()
+    assert streams.shape[1] % 16 == 5
+    s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
+    before = hopper_deflate.TOKENIZE_LAUNCHES.value
+    got = hopper_deflate.tokenize(s, n)
+    assert hopper_deflate.TOKENIZE_LAUNCHES.value == before + 1
+    _equal(got, hopper_deflate.tokenize_plain(s, n))
+    exact = int(got[1][:, :286].sum(dim=1).max())
+    for bound in (exact, exact - 1, exact // 2, streams.shape[1] + 3):
+        before = hopper_deflate.TOKENIZE_COMPACT_LAUNCHES.value
+        comp = hopper_deflate.tokenize_compact(s, n, bound)
+        assert hopper_deflate.TOKENIZE_COMPACT_LAUNCHES.value == before + 1
+        _equal(comp, hopper_deflate.tokenize_compact_plain(s, n, bound))
+        assert bool(comp[4].any()) == (bound < exact)
+    assert deflate_batch_device(s, lengths) == [native.deflate_sparse(r) for r in raws]
+
+
 def test_assemble_matches_twin(cuda):
     _, streams, lengths = _streams()
     s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
@@ -377,6 +414,29 @@ def test_tokens_from_pairs_matches_twin(cuda):
         assert hopper_tokens.LAUNCHES.value == before + 1
         _equal(got, hopper_tokens.tokens_from_pairs_plain(p, c, n, bound))
         assert got[3].tolist() == [False, False, False, True, False]
+
+
+def test_tokens_from_pairs_edges_match_twin(cuda):
+    """np % 4 != 0 with one row holding np pairs, pairs at byte 0 and byte
+    n - 1 around a gap of more tokens than a block stages, a row of no
+    pairs, and bounds at, below and above the exact counts."""
+    rng = np.random.default_rng(44)
+    n = 3_000_003
+    rows = np.zeros((4, n), np.uint8)
+    rows[0, 0] = rows[0, n - 1] = 7
+    rows[2] = rng.integers(1, 256, n) * (rng.random(n) < 0.002)
+    rows[3, rng.choice(n, 10001, replace=False)] = rng.integers(1, 256, 10001)
+    p, c = hopper_encode.bitmap_pairs(torch.from_numpy(rows).to(cuda), 10001)
+    assert p.shape[1] % 4 == 1 and c[0] == 2 and c[1] == 0 and c[3] == p.shape[1]
+    full = hopper_tokens.tokens_from_pairs_plain(p, c, n, 1)[2]
+    assert int(full[0]) > 8192
+    for bound in (int(full.max()), int(full.max()) - 1, int(full.min()), 3 * int(full.max())):
+        before = hopper_tokens.LAUNCHES.value
+        got = hopper_tokens.tokens_from_pairs(p, c, n, bound)
+        assert hopper_tokens.LAUNCHES.value == before + 1
+        _equal(got, hopper_tokens.tokens_from_pairs_plain(p, c, n, bound))
+        assert torch.equal(got[2], full)
+        assert torch.equal(got[4], hopper_tokens.adler_from_pairs(p, c, n))
 
 
 def test_assemble_split_matches_twin(cuda):

@@ -204,6 +204,21 @@ def test_tokens_from_pairs_overflow_keeps_counts_and_hist():
     assert torch.equal(cut[0], full[0, :int(count[0]) // 3])
 
 
+def test_tokens_from_pairs_adler_at_count_zero_and_np():
+    """The wrapper's CPU route returns adler_from_pairs's value, zlib's
+    adler32 of the bytes, for a row whose counts are 0 and one whose counts
+    are np (every pair valid, np % 4 != 0)."""
+    rng = np.random.default_rng(12)
+    n = 7001
+    rows = np.zeros((2, n), np.uint8)
+    rows[1, rng.choice(n, 301, replace=False)] = rng.integers(1, 256, 301)
+    pairs, counts = hopper_encode.bitmap_pairs(torch.from_numpy(rows), 301)
+    assert counts.tolist() == [0, pairs.shape[1]] and pairs.shape[1] % 4 == 1
+    adler = ht.tokens_from_pairs(pairs, counts, n, 4 * n)[4]
+    assert torch.equal(adler, ht.adler_from_pairs(pairs, counts, n))
+    assert adler.tolist() == [zlib.adler32(r.tobytes()) for r in rows]
+
+
 def test_pairs_route_matches_tokenize_compact():
     """encode with pairs, then tokens_from_pairs, equals tokenize_compact on
     the same bitmaps: tokens (the whole row), counts, bins 0..285, adler."""
