@@ -72,7 +72,12 @@ Phases (each raises on failure; nothing is caught):
 
 Phase 6 also writes 8 of the frames as 8-bit values (clipped at 255) at
 scheme 12 with one writer and the card's default entropy: both streams on
-the device, every stream through the host rans.decompress, the read exact.
+the device, every stream through the host rans.decompress, the read exact;
+then 4 of the frames as an int16 source (signed_frames: negative darks and
+background pixels that only a signed comparison leaves out) at schemes 0
+and 12 through the server -> merge -> reader, exact against the residuals:
+the encode kernels on the sign-flipped frames, then the entropy and decode
+kernels, each of the path's kernels launched (run_signed_slices).
 
 Phase 3 also holds the label kernel (all five L2/L4 modes) and the bitmap
 -> positions kernel against their twins on a batch of puddle frames, its
@@ -81,10 +86,17 @@ of phase 9 on the slice batch and their own edge batteries.  The label
 kernel's battery includes puddles across its tile borders and frames of
 the tile batteries' shapes (label_tile_shapes) and one 1 x 2^20 row; the
 positions decode has a span battery (posdecode_span_battery).  The device
-operations of one call of the label kernel, the positions decode and the
+operations of one call of the label kernel, the positions decode, the
 three tokenizers (tokenize, tokenize_compact, tokens_from_pairs, on the
-slice bitmaps) are timed from one profiler trace each (device_passes); the
-pairs tokenizer's must be its own three kernels, adler32 included.
+slice bitmaps), the rANS decode (slice gaps) and the bitmap -> positions
+kernel (L2/L3 bitmaps) are timed from one profiler trace each
+(device_passes); the pairs tokenizer's must be its own three kernels,
+adler32 included, the decode's its one kernel and the positions' a memset
+and its two kernels.
+
+``python3 chip_smoke.py passes`` prints only the redesigned kernels' times
+(kernel_passes): CUDA-event ms, host ms and the device operations of one
+call each.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -172,8 +184,14 @@ SCHEME12_KERNELS = ("encode_l1", "encode_l1_positions", "bitpack12", "rans_hist"
 MULTIDEVICE_KERNELS = ("encode_l1", "bitpack12", "label_l2l4", "tokenize", "assemble",
                        "rans_encode_tokens", "rans_decode", "bitunpack12", "decode_l1")
 ALTERNATES_KERNELS = ("encode_l1_pairs", "bitpack12_words", "tokens_from_pairs", "assemble_split")
-# the device operations of one tokens_from_pairs call
+# the int16 source's L1 path: one batch, so no compact tokenizer (it takes the
+# density hint of an earlier batch)
+SIGNED_SCHEME0_KERNELS = tuple(k for k in SCHEME0_KERNELS if k != "tokenize_compact")
+# the device operations of one tokens_from_pairs call ...
 TOKENS_FROM_PAIRS_PASSES = ("tfp_count_kernel", "scan_tiles_kernel", "tfp_scatter_kernel")
+# ... of one rans_decode call and one bitmap_positions call
+RANS_DECODE_PASSES = ("rans_decode_kernel",)
+BITMAP_POSITIONS_PASSES = ("gpu_memset", "pos_tile_kernel", "pos_tail_kernel")
 TOOL_KERNELS = ("encode_l1_phases", "decode_l1_phases", "probe_mosaic", "probe_f32dot",
                 "probe_butterfly")
 MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
@@ -561,6 +579,20 @@ def reversed_bodies(body, counts):
     for b in range(body.shape[0]):
         rev[b, :n[b]] = host[b, :n[b]][::-1]
     return torch.from_numpy(rev).to(body.device), counts
+
+
+def decode_args(device, syms, m, groups: int):
+    """The rANS decode's arguments for symbol streams (B, NPAD) int32 with
+    counts m, coded as check_rans_stream codes them (histogram -> host tables
+    -> encode at ``groups``), and the row count of the longest stream: the
+    length of the decode's serial chain of rows."""
+    freq, cum = rans_tables(hopper_rans.rans_hist(syms, m))
+    tables = torch.from_numpy(np.stack([hopper_rans.decode_tables(f) for f in freq])).to(device)
+    body, states, counts = hopper_rans.rans_encode(
+        syms, torch.from_numpy(freq).to(device), torch.from_numpy(cum).to(device), m,
+        2 * int(m.max()) + 16, groups)
+    rows = -(-int(m.max()) // (hopper_rans.W_LANES * groups))
+    return (*reversed_bodies(body, counts), states, m, tables, max(int(m.max()), 1), groups), rows
 
 
 def check_rans_stream(device, check, what, syms, m, groups_list=(1,)):
@@ -1218,13 +1250,19 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
                      ("posdecode", rans_timed["slice gaps"]["posdecode"][0]),
                      ("tokenize", deflate_timed["slice bitmaps"]["tokenize"][0]),
                      ("tokenize_compact", deflate_timed["slice bitmaps"]["tokenize_compact"][0]),
-                     ("tokens_from_pairs", alt_timed["tokens_from_pairs"][0])):
+                     ("tokens_from_pairs", alt_timed["tokens_from_pairs"][0]),
+                     ("rans_decode", rans_timed["slice gaps"]["rans_decode"][0]),
+                     ("bitmap_positions", label_timed["bitmap_positions"][0])):
         out[name]["pass_ms"] = device_passes(fn)
         print(f"  {name:16s} device operations of one call (torch.profiler, ms): "
               f"{out[name]['pass_ms']}")
-    # adler32 comes out of the pairs tokenizer's own kernels, no torch op
-    expect(set(out["tokens_from_pairs"]["pass_ms"]) == set(TOKENS_FROM_PAIRS_PASSES),
-           f"tokens_from_pairs ran {sorted(out['tokens_from_pairs']['pass_ms'])}")
+    # adler32 comes out of the pairs tokenizer's own kernels, no torch op; the
+    # decode and the positions run no torch op either
+    for name, passes in (("tokens_from_pairs", TOKENS_FROM_PAIRS_PASSES),
+                         ("rans_decode", RANS_DECODE_PASSES),
+                         ("bitmap_positions", BITMAP_POSITIONS_PASSES)):
+        expect(set(out[name]["pass_ms"]) == set(passes),
+               f"{name} ran {sorted(out[name]['pass_ms'])}")
     return out
 
 
@@ -1233,10 +1271,11 @@ L4_CENTROIDING = {"weighted_average": 1, "max": 2, "unweighted": 3}
 
 
 def slice_params(n_frames: int, height: int, width: int, num_threads: int, scheme: int = 0,
-                 level: int = 1, statistic=None, bit_depth: int = 12):
+                 level: int = 1, statistic=None, bit_depth: int = 12, data_type: int = 0):
     """Mode 1 parameters of a slice at compression scheme 0 or 12 and
     reduction ``level`` (L1 by default), with ``statistic`` the L2 summary
-    statistic or the L4 centroiding scheme, ``bit_depth``-bit (12 by default)."""
+    statistic or the L4 centroiding scheme, ``bit_depth``-bit (12 by
+    default), unsigned sources (``data_type`` 0) or signed ones (1)."""
     params = port.InputParams(dict(
         reduction_level=level, rc_operation_mode=1, calibration_threshold_epsilon=EPSILON,
         target_bit_depth=bit_depth, source_bit_depth=bit_depth, num_cols=width, num_rows=height,
@@ -1246,7 +1285,7 @@ def slice_params(n_frames: int, height: int, width: int, num_threads: int, schem
         l4_centroiding=L4_CENTROIDING.get(statistic, 0) if level == 4 else 0,
         compression_scheme=scheme, compression_level=1,
         source_file_type=0, source_header_length=0, keep_calibration_data=1,
-        calibration_file_type=0, source_data_type=0, target_data_type=0))
+        calibration_file_type=0, source_data_type=data_type, target_data_type=data_type))
     if not params.validate():
         raise ValueError("invalid input params")
     return params
@@ -1254,16 +1293,18 @@ def slice_params(n_frames: int, height: int, width: int, num_threads: int, schem
 
 def run_slice(device, data, dark, work_dir: Path, num_threads=2, scheme=0):
     """Phases 4 and 6: server -> part files -> merge -> reader on frames
-    ``data`` (n, h, w) u16 at compression scheme 0 or 12; returns (launch
-    counts of the run, write s, read s, merged file).  Scheme 12 reads
-    through the gap chain, then again with verify=True (the byte path)."""
+    ``data`` (n, h, w) u16 (or int16, as signed sources) at compression
+    scheme 0 or 12; returns (launch counts of the run, write s, read s,
+    merged file).  Scheme 12 reads through the gap chain, then again with
+    verify=True (the byte path)."""
     n_frames, height, width = data.shape
     thr = dark + EPSILON
-    expected = np.where(data > thr, data - thr, 0).astype(np.uint16)
+    expected = np.where(data > thr, data.astype(np.int64) - thr, 0)
     init_params = port.InitParams("batch", str(work_dir), image_filename="smoke",
                                   log_filename=str(work_dir / "recode.log"),
                                   run_name="chip_smoke", verbosity=0)
-    input_params = slice_params(n_frames, height, width, num_threads, scheme)
+    input_params = slice_params(n_frames, height, width, num_threads, scheme,
+                                data_type=int(np.issubdtype(data.dtype, np.signedinteger)))
 
     server = port.ReCoDeServer("batch", device=device)
     port.reset_kernel_launch_counts()
@@ -1308,6 +1349,36 @@ def run_slice(device, data, dark, work_dir: Path, num_threads=2, scheme=0):
     print(f"slice, scheme {scheme}: {n_frames} frames {height}x{width}, {num_threads} nodes, "
           f"merged {Path(merged).stat().st_size} bytes; read_frames_dense and get_frame bit-exact")
     return launches, write_s, read_s, merged
+
+
+def signed_frames(data, dark, rng):
+    """The frames and dark frame as an int16 source: 16 below their uint16
+    values (negative darks), and 1% of the background at -2000, which only a
+    signed comparison keeps out of the foreground."""
+    frames = data.astype(np.int16) - 16
+    low = (rng.random(data.shape) < 0.01) & (data <= dark + EPSILON)
+    frames[low] = -2000
+    return frames, dark.astype(np.int16) - 16
+
+
+def run_signed_slices(device, data, dark, work_dir: Path) -> dict:
+    """Phase 6b: an int16 source (signed_frames of ``data``) through the
+    server -> merge -> reader at schemes 0 and 12: the L1 encode kernel and
+    the value pack on the sign-flipped frames (with positions at scheme 12),
+    the entropy and decode kernels, all on the card, each of the path's
+    kernels launched; the reads exact against the residuals.  Returns each
+    scheme's launch counts."""
+    launches = {}
+    for scheme, kernels in ((0, SIGNED_SCHEME0_KERNELS), (12, SCHEME12_KERNELS)):
+        (work_dir / f"signed{scheme}").mkdir()
+        counts, write_s, read_s, _ = run_slice(device, data, dark, work_dir / f"signed{scheme}",
+                                               num_threads=1, scheme=scheme)
+        print(f"int16 source, scheme {scheme}: write {write_s:.3f} s, read {read_s:.3f} s; "
+              f"launches {counts}")
+        missing = [name for name in kernels if counts[name] == 0]
+        expect(not missing, f"kernels not launched by the int16 scheme-{scheme} path: {missing}")
+        launches[scheme] = counts
+    return launches
 
 
 def check_scheme12_streams(device, data, dark, merged, batch=4):
@@ -1895,7 +1966,11 @@ def kernel_passes(device, reps: int = 20) -> dict:
     call, and of tokenize, tokenize_compact (at the token bound the
     writer's density hint gives) and tokens_from_pairs on that slice's
     bitmaps with their host ms (host_ms), and the device ms of each
-    operation of one call of each (device_passes).  It times whichever pyrecode_tpu_torch is imported, so
+    operation of one call of each (device_passes); the same three figures
+    for rans_decode on the slice's gap and value streams at groups 1 and on
+    ~20% bitmaps as 8-bit symbols at groups 8 (with each call's rows and ms
+    a row), and for bitmap_positions on the L2/L3 puddle bitmaps at the
+    writer's capacity.  It times whichever pyrecode_tpu_torch is imported, so
     it also measures an older tree put first on sys.path (PERF.md)."""
     rng = np.random.default_rng(SEED)
     frames_np, dark = make_frames(rng, 4, 4096, 4096)
@@ -1926,11 +2001,38 @@ def kernel_passes(device, reps: int = 20) -> dict:
         "tokenize_compact": lambda: hopper_deflate.tokenize_compact(bitmap, full, bound),
         "tokens_from_pairs": lambda: hopper_tokens.tokens_from_pairs(pairs, pcounts, nb, pbound),
     }
+    # rans_decode: the slice's gap and value symbols at groups 1 (phase 3's
+    # streams), ~20% bitmaps as 8-bit symbols at groups 8
+    values = hopper_bitpack.bitunpack12(hopper_bitpack.bitpack12(comp))
+    valid = torch.arange(pos.shape[1], device=device)[None, :] < counts[:, None]
+    prev = torch.cat([torch.full((4, 1), -1, dtype=torch.int32, device=device), pos[:, :-1]], 1)
+    gaps = torch.where(valid, pos - prev - 1, 0).clamp(max=rans.GAP_ESCAPE - 1).contiguous()
+    dense_np, dark20 = make_frames(rng, 4, 4096, 4096, occupancy=0.2)
+    dense = torch.from_numpy(dense_np).to(device)
+    thr20 = torch.from_numpy(dark20 + EPSILON).to(device)
+    c20 = hopper_encode.encode_l1_plain(dense, thr20, 0, with_values=False)[2]
+    bm20 = hopper_encode.encode_l1(dense, thr20, _bucket_for(int(c20.max()), n))[0]
+    decodes = {}
+    for what, syms, m, groups in (
+            ("gaps", gaps, counts, 1), ("values", values, counts, 1),
+            ("bitmaps8", bm20.to(torch.int32).contiguous(),
+             torch.full((4,), bm20.shape[1], dtype=torch.int32, device=device), 8)):
+        args, rows = decode_args(device, syms, m, groups)
+        decodes[what] = (lambda a=args: hopper_rans.rans_decode(*a)), rows
+    # bitmap_positions: the L2/L3 puddle bitmaps at the writer's capacity
+    l2_bitmap = hopper_label.encode_l2l4(puddles, pthr, "l2sum", psize, 4095)[0]
+    pos_bound = 2 * -(-l2_bitmap.shape[1] // 16384) * 16384
+    calls = {**tokenizers, **{f"rans_decode_{k}": fn for k, (fn, _) in decodes.items()},
+             "bitmap_positions": lambda: hopper_gaps.bitmap_positions(l2_bitmap, pos_bound)}
+    times = {name: cuda_event_time(fn, reps, 3) for name, fn in calls.items()}
     return {
         "tokenize_compact_bound": bound,
-        **{f"{name}_ms": cuda_event_time(fn, reps, 3) for name, fn in tokenizers.items()},
-        **{f"{name}_host_ms": host_ms(fn) for name, fn in tokenizers.items()},
-        **{f"{name}_passes": device_passes(fn) for name, fn in tokenizers.items()},
+        **{f"{name}_ms": times[name] for name in calls},
+        **{f"{name}_host_ms": host_ms(fn) for name, fn in calls.items()},
+        **{f"{name}_passes": device_passes(fn) for name, fn in calls.items()},
+        **{f"rans_decode_{k}_rows": rows for k, (_, rows) in decodes.items()},
+        **{f"rans_decode_{k}_ms_per_row": times[f"rans_decode_{k}"] / rows
+           for k, (_, rows) in decodes.items()},
         "posdecode_ms": cuda_event_time(decode, reps, 3),
         "scatter_ms": cuda_event_time(
             lambda: torch.zeros((4, n + 1), dtype=torch.int16, device=device).scatter_(1, idx, src),
@@ -1985,6 +2087,9 @@ def main() -> None:
                 launches["scheme12_8bit"] = run_8bit_scheme12(
                     device, np.minimum(data[:8], 255).astype(np.uint8), dark.astype(np.uint8),
                     work_dir / "eight")
+        signed = run_signed_slices(
+            device, *signed_frames(data[:4], dark, np.random.default_rng(SEED + 1)), work_dir)
+        launches.update({f"int16_scheme{k}": v for k, v in signed.items()})
 
         puddles, pdark = make_puddle_frames(rng, 16, 4096, 4096)
         for (level, statistic, scheme), kernels in LEVEL_SLICES.items():

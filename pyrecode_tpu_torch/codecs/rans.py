@@ -785,7 +785,7 @@ def rans_symbols_batch_device(packed, plens, sym_bits: int, raw_cb=None) -> list
 
 
 def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
-                           pos_counts=None) -> list:
+                           pos_counts=None, out_bound=None) -> list:
     """Scheme-12 GAP-mode (flags 2|4) encode of a bitmap batch.
 
     ``bitmaps`` (B, NB) uint8 LSB-first bitmaps, zero past ``blens`` (B,),
@@ -793,9 +793,10 @@ def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
     positions and ``pos_counts`` (B,) int32 their counts, as the L1 encode
     kernel's positions output gives them; without them the bitmap ->
     positions kernel (:func:`hopper_gaps.bitmap_positions`) extracts them
-    with the JAX coder's capacity, 2 * NB (one set bit in four) rounded up to
-    8192; if any frame holds more set bits, the whole batch takes the host
-    coder, as the JAX coder does when its capacity buckets run out.
+    with the JAX coder's capacity, ``out_bound`` (default 2 * NB, one set
+    bit in four) rounded up to 8192; if any frame holds more set bits, the
+    whole batch takes the host coder, as the JAX coder does when its
+    capacity buckets run out.
     First-order gaps, histogram and interleaved-rANS coding run where the
     tensors lie.  A frame with a run
     of 4095 or more clear bits (escape symbols), with fewer than 65536 set
@@ -806,7 +807,9 @@ def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
     blens = np.asarray(blens, np.int64)
     raw = _raw_reader(bitmaps, blens, raw_cb)
     if positions is None:
-        out_bound = -(-2 * bitmaps.shape[1] // (ROWS_R * W_LANES)) * ROWS_R * W_LANES
+        if out_bound is None:
+            out_bound = 2 * bitmaps.shape[1]
+        out_bound = -(-out_bound // (ROWS_R * W_LANES)) * ROWS_R * W_LANES
         positions, pos_counts, overflow = hopper_gaps.bitmap_positions(bitmaps, out_bound)
         if bool(overflow.any()):
             return [compress_gaps(raw(i)) for i in range(B)]

@@ -59,6 +59,25 @@ __device__ __forceinline__ int warp_inclusive_scan(int x) {
     return x;
 }
 
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+    return v;
+}
+
+// The block writes zeros into out[from, to), 16-byte stores where the row's
+// alignment allows.
+__device__ __forceinline__ void block_zero_range(int32_t* out, int64_t from, int64_t to) {
+    if (from >= to) return;
+    int64_t head = from;
+    while (head < to && (reinterpret_cast<uintptr_t>(out + head) & 15u) != 0) ++head;
+    const int64_t n4 = (to - head) / 4;
+    for (int64_t i = from + threadIdx.x; i < head; i += blockDim.x) out[i] = 0;
+    int4* vec = reinterpret_cast<int4*>(out + head);
+    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) vec[i] = make_int4(0, 0, 0, 0);
+    for (int64_t i = head + 4 * n4 + threadIdx.x; i < to; i += blockDim.x) out[i] = 0;
+}
+
 // The calling warp's WORDS_PER_WARP words starting at first_word: lane j
 // holds word j and the number of set bits in words [0, j); every lane gets
 // the warp's total.

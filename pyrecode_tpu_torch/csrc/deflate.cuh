@@ -107,12 +107,6 @@ __device__ __forceinline__ void flush_hist(const int* hist_s, int* hist_row) {
 // (mod 65521).
 constexpr long long ADLER_MOD = 65521;
 
-__device__ __forceinline__ long long warp_sum(long long v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-    return v;
-}
-
 __device__ __forceinline__ int adler_mod(long long v) {
     return static_cast<int>((v % ADLER_MOD + ADLER_MOD) % ADLER_MOD);
 }

@@ -63,6 +63,7 @@
 #include <climits>
 
 #include "deflate.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -71,13 +72,9 @@ constexpr int HALO = 32 * 16;              // bytes past a tile, one 16-byte loa
 constexpr int SYM_NONE = 287;              // histogram slot of covered and pad bytes
 constexpr int INF = 0x7fffffff;
 constexpr int ZERO_CHUNK = BLOCK * 16;     // comp entries a tok_zero_tail_kernel block owns
-constexpr int LOOK = 4;                    // status words a lane reads a look-back round
 constexpr int CARRY_TILES = 2;             // tiles a tok_carry_kernel block takes
 constexpr int DECIDE_BLOCKS_PER_SM = 8;    // blocks an SM: the decide pass hides its latencies
 constexpr int WARP_TOKENS = TILE / WARPS;  // tokens of a warp's bytes, at most
-// status word of a tile in the compact form: flag << 32 | token count
-constexpr unsigned long long TILE_AGG = 1ull << 32;    // the tile's own count
-constexpr unsigned long long TILE_INCL = 2ull << 32;   // the count of the tile and all before it
 
 static_assert(TILE_PER_THREAD == 16, "a thread's bytes are one 16-byte load");
 static_assert(HALO >= 260, "the halo holds every run end that can change a token");
@@ -245,47 +242,6 @@ tok_carry_kernel(const uint8_t* __restrict__ streams, const int* __restrict__ le
         part[2 * tile] = adler_mod(s1);
         part[2 * tile + 1] = adler_mod(sn);
     }
-}
-
-// Warp 0 of a compact block, all lanes: publishes tile t's token count in
-// its status word (words: the stream's), looks back over the earlier tiles'
-// words, 32 * LOOK a round, for the tokens before the tile, publishes the
-// inclusive count and returns the tokens before the tile to every lane.
-__device__ long long look_back(unsigned long long* status, int t, int tile_tok) {
-    volatile unsigned long long* words = status;
-    const int lane = threadIdx.x & 31;
-    const unsigned long long own = static_cast<unsigned>(tile_tok);
-    if (lane == 0) words[t] = own | (t == 0 ? +TILE_INCL : +TILE_AGG);
-    long long excl = 0;
-    for (int j = t - 1; j >= 0; j -= 32 * LOOK) {
-        unsigned long long w[LOOK];
-        bool pending;
-        do {   // earlier tiles' blocks took earlier tickets: they all publish
-            pending = false;
-#pragma unroll
-            for (int q = 0; q < LOOK; ++q) {
-                const int idx = j - 32 * q - lane;
-                w[q] = TILE_INCL;   // before the row: nothing
-                if (idx >= 0) w[q] = words[idx];
-                pending |= (w[q] >> 32) == 0ull;
-            }
-        } while (__any_sync(kFullMask, pending));
-        int stop = 32 * LOOK;   // the nearest inclusive word, q-major
-#pragma unroll
-        for (int q = LOOK - 1; q >= 0; --q) {
-            const unsigned m = __ballot_sync(kFullMask, (w[q] >> 32) == 2ull);
-            if (m) stop = 32 * q + __ffs(m) - 1;
-        }
-        long long part = 0;
-#pragma unroll
-        for (int q = 0; q < LOOK; ++q) {
-            if (32 * q + lane <= stop) part += static_cast<long long>(w[q] & 0xFFFFFFFFull);
-        }
-        excl += warp_sum(part);
-        if (stop < 32 * LOOK) break;
-    }
-    if (lane == 0 && t > 0) words[t] = TILE_INCL | static_cast<unsigned long long>(excl + tile_tok);
-    return excl;
 }
 
 // kCompact == false: tok.  kCompact == true: comp, counts and overflow, the

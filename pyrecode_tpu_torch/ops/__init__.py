@@ -13,7 +13,7 @@ from .bitpack import (bitpack_values, bitpack_values_device, bitpack_values_word
 from .cc_label import label_components
 from .compact import stream_compact
 from .decode import decode_bitmap_frames, decode_l1_frames
-from .encode import EncodeResult, count_foreground, encode_frames_auto
+from .encode import EncodeResult, count_foreground, encode_frames, encode_frames_auto
 from .hopper_bitpack import PACK_LAUNCHES, UNPACK_LAUNCHES, WORDS_LAUNCHES, bitpack12, bitpack12_words, bitunpack12
 from .hopper_decode import decode_l1, posdecode
 from .hopper_deflate import (ASSEMBLE_SPLIT_LAUNCHES, assemble, assemble_split, compact_tokens,
@@ -31,8 +31,8 @@ __all__ = [
     "assemble_split", "bitmap_positions", "bitpack12", "bitpack12_words", "bitpack_values",
     "bitpack_values_device", "bitpack_values_words", "bitunpack12", "bitunpack_values",
     "bitunpack_values_device", "compact_tokens", "count_foreground", "decode_bitmap_frames",
-    "decode_l1", "decode_l1_frames", "encode_frames_auto", "encode_l1", "encode_l2l4",
-    "label_components", "pack_bits", "packed_group_shape", "packed_size_bytes",
+    "decode_l1", "decode_l1_frames", "encode_frames", "encode_frames_auto", "encode_l1",
+    "encode_l2l4", "label_components", "pack_bits", "packed_group_shape", "packed_size_bytes",
     "packed_word_group_shape", "posdecode", "rans_decode", "rans_encode", "rans_encode_tokens",
     "rans_hist", "stream_compact", "tokenize", "tokenize_compact", "tokens_from_pairs",
     "unpack_bits",

@@ -114,7 +114,7 @@ def load() -> ctypes.CDLL:
             lib.pr_posdecode.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             lib.pr_label_l2l4.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64,
                                           i64, i64, i64, p]
-            lib.pr_bitmap_positions.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
+            lib.pr_bitmap_positions.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             lib.pr_tokens_from_pairs.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
             lib.pr_assemble_split.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, p, i64,
                                               i64, i64, p]
@@ -136,6 +136,8 @@ def load() -> ctypes.CDLL:
                        lib.pr_pairs_tiles, lib.pr_label_tiles):
                 fn.argtypes = [i64]
                 fn.restype = i64
+            lib.pr_positions_status_words.argtypes = [i64, i64]
+            lib.pr_positions_status_words.restype = i64
             lib.pr_split_window_words.argtypes = []
             lib.pr_split_window_words.restype = i64
             lib.pr_error_string.argtypes = [ctypes.c_int]

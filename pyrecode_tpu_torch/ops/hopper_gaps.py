@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _launch
+from . import _build, _launch
 from .bitpack import unpack_bits
 from .compact import stream_compact
 
@@ -50,10 +50,10 @@ def bitmap_positions(bitmaps: torch.Tensor, out_size: int):
     pos = torch.empty((B, out_size), dtype=torch.int32, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    tiles = torch.empty((B, _launch.num_tiles(8 * NB)), dtype=torch.int32, device=dev)
-    totals = torch.empty(B, dtype=torch.int32, device=dev)
+    # the tiles' status words and the ticket, zeroed by the call's memset
+    status = torch.empty(int(_build.load().pr_positions_status_words(B, NB)), dtype=torch.int64,
+                         device=dev)
     _launch.launch(LAUNCHES, "pr_bitmap_positions", dev,
                    _launch.ptr(bitmaps), _launch.ptr(pos), _launch.ptr(counts),
-                   _launch.ptr(overflow), _launch.ptr(tiles), _launch.ptr(totals), B, NB,
-                   out_size)
+                   _launch.ptr(overflow), _launch.ptr(status), B, NB, out_size)
     return pos, counts, overflow

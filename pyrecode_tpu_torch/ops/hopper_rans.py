@@ -258,8 +258,8 @@ def _check_decode(body_rev, blen, states, m, tables, npad, groups):
         raise ValueError(f"states must be ({B}, {nways}), got {tuple(states.shape)}")
     if tuple(tables.shape) != (B, 3, ALPHABET):
         raise ValueError(f"tables must be ({B}, 3, {ALPHABET}), got {tuple(tables.shape)}")
-    if B and int(m.max()) > npad:
-        raise ValueError(f"npad={npad} is smaller than the largest m ({int(m.max())})")
+    if npad < 0:
+        raise ValueError(f"npad must be >= 0, got {npad}")
 
 
 def rans_decode_plain(body_rev, blen, states, m, tables, npad: int, groups: int = 1):
@@ -282,7 +282,9 @@ def rans_decode_plain(body_rev, blen, states, m, tables, npad: int, groups: int 
             w = min(nways, mb - row0)
             xr = x[:w]
             slot = xr & (ALPHABET - 1)
-            syms[b, row0:row0 + w] = sym_t[slot].to(torch.int32)
+            stored = min(w, npad - row0)
+            if stored > 0:
+                syms[b, row0:row0 + stored] = sym_t[slot[:stored]].to(torch.int32)
             xp = (f_t[slot] * (xr >> PROB_BITS) + rem_t[slot]) & _U32
             take = (xp < RANS_L).to(torch.int64) + (xp < (RANS_L >> 8)).to(torch.int64)
             total = int(take.sum())
@@ -307,18 +309,20 @@ def rans_decode(body_rev: torch.Tensor, blen: torch.Tensor, states: torch.Tensor
     of its bytes valid; states (B, 1024 * groups) int32; m (B,) int32;
     tables (B, 3, 4096) int32 from :func:`decode_tables`.  Returns (syms
     (B, npad) int32, 0 from m on, underflow (B,) bool: the body ran out,
-    where the numpy decoder raises).
+    where the numpy decoder raises; the rows after the one that ran out are
+    0).  A stream with m > npad is decoded to its end (for ``underflow``),
+    and its symbols at or past npad are not stored.
     """
     _check_decode(body_rev, blen, states, m, tables, npad, groups)
     if _launch.on_host(body_rev, blen, states, m, tables):
         return rans_decode_plain(body_rev, blen, states, m, tables, npad, groups)
     B, width = body_rev.shape
     dev = body_rev.device
-    syms = torch.zeros((B, npad), dtype=torch.int32, device=dev)
-    underflow = torch.zeros(B, dtype=torch.uint8, device=dev)
+    syms = torch.empty((B, npad), dtype=torch.int32, device=dev)
+    underflow = torch.empty(B, dtype=torch.bool, device=dev)
     if B:
         _launch.launch(DECODE_LAUNCHES, "pr_rans_decode", dev, _launch.ptr(body_rev),
                        _launch.ptr(blen), _launch.ptr(states), _launch.ptr(m),
                        _launch.ptr(tables), _launch.ptr(syms), _launch.ptr(underflow), B, width,
                        npad, groups)
-    return syms, underflow.to(torch.bool)
+    return syms, underflow

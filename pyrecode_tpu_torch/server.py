@@ -12,7 +12,7 @@ file.  The ZMQ sockets of the reference become in-process queues carrying
 the same ``MessageData`` envelopes.
 
 ``isolation="process"`` is not ported yet: its workers must keep CUDA
-uninitialised (ROADMAP Queue 1 item 6).
+uninitialised (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -302,7 +302,7 @@ class ReCoDeServer:
         isolation = str(isolation).strip().lower()
         if isolation == "process":
             raise NotImplementedError(
-                "isolation='process' is not ported yet (ROADMAP Queue 1 item 6)")
+                "isolation='process' is not ported yet (ROADMAP Queue 1)")
         if isolation != "thread":
             raise ValueError("isolation must be 'thread' or 'process'")
         self._device = resolve_device(device)

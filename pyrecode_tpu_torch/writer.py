@@ -10,7 +10,12 @@ files are the JAX writer's bytes.  Its device stages:
   (one host sync, as in the JAX writer), picks the value buffer with
   ``_bucket_for`` and launches the fused encode (L1/L3: with the values'
   pixel positions when scheme 12 codes on the device; L2/L4: the label
-  kernel) and the value pack without waiting for them;
+  kernel) and the value pack without waiting for them.  Unsigned sources
+  widen to uint16, and int8/int16 L1/L3 frames have their sign bit flipped
+  (:func:`.ops.encode.signed_to_kernel_frames`), as the JAX writer widens
+  them for its Pallas kernel; int8/int16 L2/L4 frames, whose statistics are
+  of the signed values, take the plain :func:`.ops.encode.encode_frames` in
+  their own dtype, as the JAX writer sends every L2/L4 batch to XLA;
 * ``_materialize_streams`` entropy-codes the streams on the device
   (``device_entropy``: scheme-0 deflate or scheme-12 rANS) and returns the
   coded streams, or copies the raw streams back for host entropy coding.
@@ -43,7 +48,8 @@ from .constants import rc_cfg as rc
 from .device import resolve_device
 from .fileutils import read_file
 from .header import ReCoDeHeader
-from .ops.encode import count_foreground, encode_frames_auto
+from .ops.encode import (count_foreground, encode_frames, encode_frames_auto,
+                         signed_to_kernel_frames)
 from .params import InitParams, InputParams
 from .structures import ReCoDeStructures
 
@@ -85,9 +91,11 @@ class ReCoDeWriter:
         ``fast_deflate`` (scheme 0) codes with the native sparse deflate.
 
         ``device_entropy`` entropy-codes on the device (mode 1): scheme 0 by
-        the deflate kernels, scheme 12 by the rANS kernels (at L1 with
-        8..12-bit values; at L2-L4 the streams in gap mode from the bitmap ->
-        positions kernel).  None, the default, turns it on where it applies
+        the deflate kernels, scheme 12 by the rANS kernels (at L1 the bitmap
+        in gap mode from the encode's positions, 8..12-bit values as
+        symbols and values of other widths in gap mode, as the JAX writer's
+        XLA path codes them; at L2-L4 the streams in gap mode from the
+        bitmap -> positions kernel).  None, the default, turns it on where it applies
         when the device is CUDA and ``use_tpu`` is set, as the JAX writer does
         on a TPU; True forces it (on the CPU it runs the kernels' twins) and
         raises where it is not ported; False turns it off.  Scheme 0 on the
@@ -129,6 +137,10 @@ class ReCoDeWriter:
         # threshold = dark + epsilon, saturated at the dtype's max rather
         # than wrapped (the reference wraps, recode_writer.py:137)
         self._src_dtype = self._input_params.source_numpy_dtype
+        if self._src_dtype == np.uint64:   # the JAX writer's saturation overflows here too
+            raise OverflowError(
+                "uint64 sources: the threshold's saturation at the dtype's max overflows int64, "
+                "as in the JAX writer (ROADMAP Queue 3)")
         calibration = self._load_calibration(dark_data)
         if self._header["ny"] != calibration.shape[0] or self._header["nx"] != calibration.shape[1]:
             raise RuntimeError("Data and Calibration frames have different shapes")
@@ -158,12 +170,15 @@ class ReCoDeWriter:
                                        self._codec.decompress)
 
         self._threshold_dev = None
+        self._signed_source = self._src_dtype in (np.int8, np.int16)
         if self._init_params.use_tpu:
-            if self._src_dtype not in (np.uint8, np.uint16):
+            if self._src_dtype not in (np.uint8, np.uint16, np.int8, np.int16):
                 raise NotImplementedError(
-                    f"the encode kernel takes 8- and 16-bit unsigned sources, not {self._src_dtype}")
+                    f"the device writer takes 8- and 16-bit integer sources, not "
+                    f"{np.dtype(self._src_dtype).name}: the JAX writer's device path writes other "
+                    "bytes than its host oracle for them (ROADMAP Queue 3); pass use_tpu=False")
             # L2 statistics saturate at the source dtype's max, then at the
-            # bit depth (oracle.reduce_frame); the device frames are uint16
+            # bit depth (oracle.reduce_frame)
             self._stat_limit = min(int(np.iinfo(self._src_dtype).max), (1 << self._bit_depth) - 1)
             self._threshold_dev = self._to_device(self._threshold)
         self._device_entropy = self._resolve_device_entropy(device_entropy)
@@ -205,11 +220,6 @@ class ReCoDeWriter:
         if self._rc_operation_mode != 1 or self._scheme not in (0, 12):
             return ValueError(
                 "device_entropy needs rc_operation_mode 1 and compression_scheme 0 or 12")
-        if self._scheme == 12 and self._reduction_level == 1 and not 8 <= self._bit_depth <= 12:
-            return NotImplementedError(
-                f"scheme-12 device entropy of {self._bit_depth}-bit L1 values is not ported: the "
-                "symbol kernels code 8..12-bit values (4096 bins); pass device_entropy=False "
-                "to code them on the host (ROADMAP Queue 1)")
         return None
 
     def _resolve_device_entropy(self, device_entropy) -> bool:
@@ -229,8 +239,12 @@ class ReCoDeWriter:
         return bool(device_entropy)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        host = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint16))
-        return host.to(self._device)
+        """Frames or the threshold on the device as the encode takes them:
+        uint16 for the kernels, the source dtype for the plain L2/L4 encode."""
+        if not self._signed_source:
+            return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint16)).to(self._device)
+        dev = torch.from_numpy(np.ascontiguousarray(arr, dtype=self._src_dtype)).to(self._device)
+        return dev if self._reduction_level in (2, 4) else signed_to_kernel_frames(dev)
 
     def _load_calibration(self, dark_data) -> np.ndarray:
         if dark_data is not None:
@@ -496,6 +510,12 @@ class ReCoDeWriter:
         counts = count_foreground(frames, self._threshold_dev)
         max_count = int(counts.max()) if counts.numel() else 0
         bucket = _bucket_for(max_count, int(self._header["ny"]) * int(self._header["nx"]))
+        if self._signed_source and self._reduction_level in (2, 4):
+            return ("torch", encode_frames(frames, self._threshold_dev, self._reduction_level,
+                                           self._bit_depth, max_values=bucket,
+                                           l2_statistic=self._l2_statistic,
+                                           l4_scheme=self._l4_scheme,
+                                           stat_limit=self._stat_limit))
         # scheme-12 device entropy codes the bitmap by its set-bit positions:
         # the L1 encode kernel stores them beside the values (the foreground
         # count also bounds the L2/L4 puddle count)
@@ -537,7 +557,8 @@ class ReCoDeWriter:
         plens = None if res.packed is None else res.packed_len.cpu().numpy().astype(np.int64)
         stt = datetime.now()
         if self._scheme == 12 and self._reduction_level == 1:
-            cbm = self._code_bitmaps_rans(res, plens)
+            cbm = self._code_l1_rans(res.bitmap, np.full(B, n_bm, np.int32), plens,
+                                     res.positions, res.counts)
         elif self._scheme == 12:
             cbm = self._code_gaps(res.bitmap, np.full(B, n_bm, np.int32))
         else:
@@ -547,10 +568,12 @@ class ReCoDeWriter:
         if res.packed is None:
             return [(c, None, 0) for c in cbm], t_bm, timedelta(0)
         stt = datetime.now()
-        if self._scheme == 12 and self._reduction_level == 1:
+        if self._scheme == 12 and self._reduction_level == 1 and 8 <= self._bit_depth <= 12:
             # the values as bit_depth-wide symbols (symbol mode); 8-bit values
             # are the packed bytes, 8-bit symbols, as the host path codes them
             cpx = rans.rans_symbols_batch_device(res.packed, plens, self._bit_depth)
+        elif self._scheme == 12 and self._reduction_level == 1:
+            cpx = self._code_l1_rans(res.packed, plens, plens)
         elif self._scheme == 12:
             cpx = self._code_gaps(res.packed, plens)
         else:
@@ -558,27 +581,30 @@ class ReCoDeWriter:
         t_px = datetime.now() - stt
         return [(cbm[i], cpx[i], int(plens[i])) for i in range(B)], t_bm, t_px
 
-    def _code_bitmaps_rans(self, res, plens):
-        """Scheme-12 bitmaps: gap mode from the encode's positions, or 8-bit
-        symbols when set bits outnumber the bitmap's bytes, where gaps cannot
-        win (the JAX writer's test, against its padded stream width)."""
-        B, n_bm = res.bitmap.shape
-        lens = np.full(B, n_bm, np.int32)
+    def _code_l1_rans(self, streams, lens, plens, positions=None, pos_counts=None):
+        """Scheme-12 L1 streams in gap mode, or as 8-bit symbols when a
+        frame's values outnumber the stream's bytes, where gaps cannot win
+        (the JAX writer's test, against its padded stream width): the bitmap
+        from the encode's positions, and values outside 8..12 bits, as the
+        JAX writer's XLA path codes them, from the bitmap -> positions
+        kernel at its capacity, the most values + 4096."""
         counts = plens * 8 // self._bit_depth
-        if int(counts.max()) >= -(-n_bm // _JAX_BITMAP_STEP) * _JAX_BITMAP_STEP:
-            return rans.rans_symbols_batch_device(res.bitmap, lens, 8)
-        return rans.rans_gaps_batch_device(res.bitmap, lens, positions=res.positions,
-                                           pos_counts=res.counts)
+        if int(counts.max()) >= -(-streams.shape[1] // _JAX_BITMAP_STEP) * _JAX_BITMAP_STEP:
+            return rans.rans_symbols_batch_device(streams, lens, 8)
+        if positions is not None:
+            return rans.rans_gaps_batch_device(streams, lens, positions=positions,
+                                               pos_counts=pos_counts)
+        return self._code_gaps(streams, lens, int(counts.max()) + 4096)
 
     @staticmethod
-    def _code_gaps(streams, lens):
-        """Scheme-12 streams of L2/L3/L4 (bitmaps, and L2's packed statistics)
-        in gap mode from the bitmap -> positions kernel, padded as the JAX
-        writer pads them: the positions capacity is two a byte of it."""
+    def _code_gaps(streams, lens, out_bound=None):
+        """Scheme-12 streams in gap mode from the bitmap -> positions kernel,
+        padded as the JAX writer pads them: the positions capacity is two a
+        byte of it, or ``out_bound``."""
         pad = -streams.shape[1] % _JAX_BITMAP_STEP
         if pad:
             streams = torch.nn.functional.pad(streams, (0, pad))
-        return rans.rans_gaps_batch_device(streams, lens)
+        return rans.rans_gaps_batch_device(streams, lens, out_bound=out_bound)
 
     def _finish_batch(self, batch: np.ndarray, first_abs_index: int, dispatched,
                       n_in_batch: int, run_metrics: dict) -> None:

@@ -128,6 +128,91 @@ def test_rans_encode_decode_match_twins(cuda, groups):
         assert torch.equal(syms[b, :m[b]].cpu(), torch.from_numpy(vals[b, :m[b]]))
 
 
+def _decode_args(cuda, vals, freq, cum, m, groups, width=None, npad=None):
+    """The decode's arguments for symbol streams coded by the encode kernel:
+    bodies reversed into rows of ``width`` bytes (the longest body by
+    default), ``npad`` symbols (the largest m by default)."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (vals, freq, cum, m)]
+    out_bound = 2 * vals.shape[1] + 16
+    body, states, counts = hopper_rans.rans_encode(*args, out_bound, groups)
+    n = counts.cpu().numpy()
+    width = int(n.max()) if width is None else width
+    rev = np.zeros((len(n), width), np.uint8)
+    host = body.cpu().numpy()
+    for b in range(len(n)):
+        rev[b, :n[b]] = host[b, :n[b]][::-1]
+    tables = torch.from_numpy(np.stack([hopper_rans.decode_tables(f) for f in freq])).to(cuda)
+    npad = max(int(m.max()), 1) if npad is None else npad
+    return [torch.from_numpy(rev).to(cuda), counts, states, args[3], tables, npad, groups]
+
+
+def _check_decode(dec):
+    before = hopper_rans.DECODE_LAUNCHES.value
+    got = hopper_rans.rans_decode(*dec)
+    assert hopper_rans.DECODE_LAUNCHES.value == before + 1
+    _equal(got, hopper_rans.rans_decode_plain(*dec))
+    return got
+
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_rans_decode_edges_match_twin(cuda, groups):
+    """Rows of body_width % 16 != 0, npad > m (zeros past m), m = 0, m <
+    1024, m not a multiple of nways, npad < m (nothing stored past npad);
+    then bodies one byte short at the first row and in the middle of a
+    stream (underflow)."""
+    vals, freq, cum, m = _symbols(41, 5, 30000, [30000, 700, 0, 29999, 8193])
+    width = 2 * 30000 + 21
+    dec = _decode_args(cuda, vals, freq, cum, m, groups, width=width, npad=30000 + 37)
+    assert width % 16 and dec[0].shape[1] == width
+    syms, underflow = _check_decode(dec)
+    assert not bool(underflow.any())
+    for b in range(5):
+        assert torch.equal(syms[b, :m[b]].cpu(), torch.from_numpy(vals[b, :m[b]]))
+    assert not bool(syms[:, 30000:].any())
+    cut, cut_underflow = _check_decode([*dec[:5], 8000, groups])
+    assert not bool(cut_underflow.any()) and torch.equal(cut, syms[:, :8000])
+
+    # the bytes the first r rows of stream 0 take: the least blen they decode with
+    nways = hopper_rans.W_LANES * groups
+    one = [t[:1] for t in dec[:5]]
+
+    def taken(rows):
+        lo, hi = 0, int(dec[1][0])
+        mm = torch.tensor([min(rows * nways, int(m[0]))], dtype=torch.int32, device=cuda)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            bl = torch.tensor([mid], dtype=torch.int32, device=cuda)
+            if bool(hopper_rans.rans_decode_plain(one[0], bl, one[2], mm, one[4], 30000,
+                                                  groups)[1][0]):
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    middle = -(-int(m[0]) // nways) // 2
+    short = torch.tensor([taken(1) - 1, taken(middle) - 1], dtype=torch.int32, device=cuda)
+    dec_short = [one[0].repeat(2, 1), short, one[2].repeat(2, 1), one[3].repeat(2),
+                 one[4].repeat(2, 1, 1), 30000, groups]
+    syms, underflow = _check_decode(dec_short)
+    assert underflow.tolist() == [True, True]
+    assert not bool(syms[0, nways:].any()) and bool(syms[1, (middle - 1) * nways:].any())
+
+
+def test_rans_decode_many_streams_and_long_match_twin(cuda):
+    """40 streams of different lengths at groups 1; one stream of more than
+    2^21 symbols at groups 8."""
+    lengths = [int(x) for x in np.random.default_rng(42).integers(0, 20000, 40)]
+    lengths[0] = 20000
+    vals, freq, cum, m = _symbols(43, 40, 20000, lengths)
+    syms, underflow = _check_decode(_decode_args(cuda, vals, freq, cum, m, 1))
+    assert not bool(underflow.any())
+    long = (1 << 21) + 1000
+    vals, freq, cum, m = _symbols(44, 2, long, [long, long - 5000])
+    syms, underflow = _check_decode(_decode_args(cuda, vals, freq, cum, m, 8))
+    assert not bool(underflow.any())
+    assert torch.equal(syms[0].cpu(), torch.from_numpy(vals[0]))
+
+
 def test_rans_encode_tokens_matches_twin(cuda):
     """#9t: tokens of byte streams (compacted int32 and uint16), an edge
     battery (empty, one token, literals only, every length code, a
@@ -358,16 +443,24 @@ def test_label_l2l4_matches_twin(cuda, mode):
 
 
 def test_bitmap_positions_matches_twin(cuda):
+    """n_bytes % 16 != 0 and below one tile, no and all bits set, out_size
+    at the count, one below it and 0, one set bit at the last bit, a batch
+    of 40 streams."""
     rng = np.random.default_rng(33)
-    for nb, density in ((16384, 0.05), (12345, 0.3), (8192, 0.0), (5001, 1.0)):
-        bits = (rng.random((3, nb * 8)) < density).astype(np.uint8)
+    cases = [(3, 16384, 0.05), (3, 12345, 0.3), (3, 8192, 0.0), (3, 5001, 1.0), (3, 100, 0.2),
+             (3, 65536 + 7, 0.01), (40, 30000, 0.02)]
+    for batch, nb, density in cases:
+        bits = (rng.random((batch, nb * 8)) < density).astype(np.uint8)
+        if nb == 8192:
+            bits[1, -1] = 1       # one set bit, at the last bit
+        n_set = bits.sum(axis=1)
         bm = torch.from_numpy(np.packbits(bits, axis=1, bitorder="little")).to(cuda)
-        for out_size in (2 * nb, 1000):
+        for out_size in sorted({2 * nb, 1000, int(n_set.max()), max(int(n_set.max()) - 1, 0), 0}):
             before = hopper_gaps.LAUNCHES.value
             got = hopper_gaps.bitmap_positions(bm, out_size)
             assert hopper_gaps.LAUNCHES.value == before + 1
             _equal(got, hopper_gaps.bitmap_positions_plain(bm, out_size))
-            assert got[2].tolist() == [int(n) > out_size for n in bits.sum(axis=1)]
+            assert got[2].tolist() == [int(n) > out_size for n in n_set]
 
 
 def test_bitpack12_words_matches_twin(cuda):

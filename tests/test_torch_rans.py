@@ -131,6 +131,26 @@ def test_decode_underflow_flags_without_reading_past_the_body(streams, encoded):
     assert underflow.tolist() == [True, False, True, False]
 
 
+def test_decode_stores_nothing_past_npad(streams, encoded):
+    """npad below some m: the symbols up to npad, the same underflow flags
+    (a stream is decoded to its end), as the kernel keeps its contract."""
+    _, m, freq, _ = streams
+    _, (body, states, counts) = encoded
+    rev = np.zeros((4, int(counts.max())), np.uint8)
+    for b in range(4):
+        rev[b, :counts[b]] = body[b, :counts[b]][::-1]
+    tables = np.stack([hr.decode_tables(f) for f in freq])
+    args = [torch.from_numpy(a) for a in (rev, counts, states, m, tables)]
+    full, full_underflow = hr.rans_decode(*args, NPAD, 1)
+    for npad in (5000, 1024, 0):
+        syms, underflow = hr.rans_decode(*args, npad, 1)
+        assert torch.equal(syms, full[:, :npad]), npad
+        assert torch.equal(underflow, full_underflow), npad
+    cut = [torch.from_numpy(np.ascontiguousarray(a))
+           for a in (rev[:, :64], np.minimum(counts, 64).astype(np.int32))]
+    assert hr.rans_decode(*cut, *args[2:], 1000, 1)[1].tolist() == [True, False, True, False]
+
+
 @pytest.mark.parametrize("groups", [1, 8])
 def test_encode_decode_match_numpy_contract(groups):
     """groups 8 (nways 8192) against the numpy coder; the Pallas groups-8

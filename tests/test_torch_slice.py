@@ -252,11 +252,12 @@ def test_unported_options_raise(tmp_path):
     assert writer(compression_scheme=12, reduction_level=3)._device_entropy is True
     assert writer(compression_scheme=12, reduction_level=2, source_bit_depth=8,
                   target_bit_depth=8)._device_entropy is True
-    # 8-bit L1 values are 8-bit symbols; 13..16 bits outgrow the kernels' 4096 bins
+    # 8-bit L1 values are 8-bit symbols; 13..16 bits take the gap coder, as
+    # the JAX writer's XLA path codes them
     assert writer(compression_scheme=12, source_bit_depth=8,
                   target_bit_depth=8)._device_entropy is True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        writer(compression_scheme=12, source_bit_depth=13, target_bit_depth=13)
+    assert writer(compression_scheme=12, source_bit_depth=13,
+                  target_bit_depth=13)._device_entropy is True
     assert port.ReCoDeWriter("x", dark_data=dark, output_directory=str(tmp_path),
                              input_params=_params(shape=(2, 16, 16), num_threads=1,
                                                   reduction_level=2),
