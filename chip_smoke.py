@@ -86,13 +86,14 @@ of phase 9 on the slice batch and their own edge batteries.  The label
 kernel's battery includes puddles across its tile borders and frames of
 the tile batteries' shapes (label_tile_shapes) and one 1 x 2^20 row; the
 positions decode has a span battery (posdecode_span_battery).  The device
-operations of one call of the label kernel, the positions decode, the
-three tokenizers (tokenize, tokenize_compact, tokens_from_pairs, on the
-slice bitmaps), the rANS decode (slice gaps) and the bitmap -> positions
-kernel (L2/L3 bitmaps) are timed from one profiler trace each
-(device_passes); the pairs tokenizer's must be its own three kernels,
-adler32 included, the decode's its one kernel and the positions' a memset
-and its two kernels.
+operations of one call of the L1 encode (slice), the label kernel, the
+positions decode, the three tokenizers (tokenize, tokenize_compact,
+tokens_from_pairs, on the slice bitmaps), the rANS decode (slice gaps) and
+the bitmap -> positions kernel (L2/L3 bitmaps) are timed from one profiler
+trace each (device_passes); the encode's must be its dense pass and its
+placing kernel, the pairs tokenizer's its own three kernels, adler32
+included, the decode's its one kernel and the positions' a memset and its
+two kernels.
 
 ``python3 chip_smoke.py passes`` prints only the redesigned kernels' times
 (kernel_passes): CUDA-event ms, host ms and the device operations of one
@@ -192,6 +193,8 @@ TOKENS_FROM_PAIRS_PASSES = ("tfp_count_kernel", "scan_tiles_kernel", "tfp_scatte
 # ... of one rans_decode call and one bitmap_positions call
 RANS_DECODE_PASSES = ("rans_decode_kernel",)
 BITMAP_POSITIONS_PASSES = ("gpu_memset", "pos_tile_kernel", "pos_tail_kernel")
+# ... and of one encode_l1 call: the dense pass, then the placing and zero-tail kernel
+ENCODE_L1_PASSES = ("encode_tile_kernel", "encode_place_kernel")
 TOOL_KERNELS = ("encode_l1_phases", "decode_l1_phases", "probe_mosaic", "probe_f32dot",
                 "probe_butterfly")
 MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
@@ -1246,7 +1249,8 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
         report(name, "slice bitmaps" if name in ("tokens_from_pairs", "assemble_split") else
                "frames" if name == "encode_l1_pairs" else "slice values")
     # each pass (and each memset) of one call, from one profiler trace
-    for name, fn in (("label_l2l4", label_modes["l2sum"]),
+    for name, fn in (("encode_l1", timed["encode_l1"][0]),
+                     ("label_l2l4", label_modes["l2sum"]),
                      ("posdecode", rans_timed["slice gaps"]["posdecode"][0]),
                      ("tokenize", deflate_timed["slice bitmaps"]["tokenize"][0]),
                      ("tokenize_compact", deflate_timed["slice bitmaps"]["tokenize_compact"][0]),
@@ -1257,8 +1261,9 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
         print(f"  {name:16s} device operations of one call (torch.profiler, ms): "
               f"{out[name]['pass_ms']}")
     # adler32 comes out of the pairs tokenizer's own kernels, no torch op; the
-    # decode and the positions run no torch op either
-    for name, passes in (("tokens_from_pairs", TOKENS_FROM_PAIRS_PASSES),
+    # encode, the decode and the positions run no torch op either
+    for name, passes in (("encode_l1", ENCODE_L1_PASSES),
+                         ("tokens_from_pairs", TOKENS_FROM_PAIRS_PASSES),
                          ("rans_decode", RANS_DECODE_PASSES),
                          ("bitmap_positions", BITMAP_POSITIONS_PASSES)):
         expect(set(out[name]["pass_ms"]) == set(passes),
@@ -1961,13 +1966,17 @@ def host_ms(fn, reps: int = 20) -> float:
 
 def kernel_passes(device, reps: int = 20) -> dict:
     """The redesigned kernels' times on batches like phase 3's, made from
-    SEED: CUDA-event ms of encode_l2l4 in each mode on 4 x 4096^2 puddle
-    frames, of posdecode on a 4 x 4096^2 slice at ~1% beside the scatter_
-    call, and of tokenize, tokenize_compact (at the token bound the
-    writer's density hint gives) and tokens_from_pairs on that slice's
-    bitmaps with their host ms (host_ms), and the device ms of each
-    operation of one call of each (device_passes); the same three figures
-    for rans_decode on the slice's gap and value streams at groups 1 and on
+    SEED: CUDA-event ms, host ms (host_ms) and the device ms of each
+    operation of one call (device_passes) of encode_l1 on phase 3's slice
+    batch (4 x 4096^2 at ~1%) in its three modes (plain, with positions,
+    with pairs at out_size), at L3 and cut after each phase
+    (encode_l1_phases), each with its byte bound, beside the writer's
+    pre-count count_foreground on the same batch; CUDA-event ms of
+    encode_l2l4 in each mode on 4 x 4096^2 puddle frames, of posdecode on
+    the slice beside the scatter_ call; the same three figures for
+    tokenize, tokenize_compact (at the token bound the writer's density
+    hint gives) and tokens_from_pairs on the slice's bitmaps, for
+    rans_decode on the slice's gap and value streams at groups 1 and on
     ~20% bitmaps as 8-bit symbols at groups 8 (with each call's rows and ms
     a row), and for bitmap_positions on the L2/L3 puddle bitmaps at the
     writer's capacity.  It times whichever pyrecode_tpu_torch is imported, so
@@ -2022,10 +2031,23 @@ def kernel_passes(device, reps: int = 20) -> dict:
     # bitmap_positions: the L2/L3 puddle bitmaps at the writer's capacity
     l2_bitmap = hopper_label.encode_l2l4(puddles, pthr, "l2sum", psize, 4095)[0]
     pos_bound = 2 * -(-l2_bitmap.shape[1] // 16384) * 16384
-    calls = {**tokenizers, **{f"rans_decode_{k}": fn for k, (fn, _) in decodes.items()},
+    encodes = {
+        "encode_l1": lambda: hopper_encode.encode_l1(frames, thr, size),
+        "encode_l1_positions": lambda: hopper_encode.encode_l1(frames, thr, size, True, True, 12),
+        "encode_l1_pairs": lambda: hopper_encode.encode_l1(frames, thr, size, pairs_out=size),
+        "encode_l1_l3": lambda: hopper_encode.encode_l1(frames, thr, 0, with_values=False),
+        **{f"encode_l1_{p}": (lambda p=p: hopper_encode.encode_l1_phases(frames, thr, size,
+                                                                          True, p))
+           for p in hopper_encode.PHASES},
+    }
+    calls = {**encodes, "count_foreground": lambda: count_foreground(frames, thr),
+             **tokenizers, **{f"rans_decode_{k}": fn for k, (fn, _) in decodes.items()},
              "bitmap_positions": lambda: hopper_gaps.bitmap_positions(l2_bitmap, pos_bound)}
     times = {name: cuda_event_time(fn, reps, 3) for name, fn in calls.items()}
     return {
+        "encode_l1_out_size": size,
+        **{f"{name}_bound_ms": io_bytes(frames, thr, fn()) / HBM_BYTES_PER_S * 1e3
+           for name, fn in encodes.items()},
         "tokenize_compact_bound": bound,
         **{f"{name}_ms": times[name] for name in calls},
         **{f"{name}_host_ms": host_ms(fn) for name, fn in calls.items()},

@@ -100,7 +100,7 @@ def load() -> ctypes.CDLL:
             lib.pr_bitunpack12.argtypes = [p, p, i64, p]
             lib.pr_bitpack12_words.argtypes = [p, p, i64, p]
             lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64, i64,
-                                         ctypes.c_int, p, p, p, p, i64, p]
+                                         ctypes.c_int, p, p, i64, p]
             lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_tokenize.argtypes = [p, p, p, p, p, p, i64, i64, p]
             lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
@@ -118,7 +118,7 @@ def load() -> ctypes.CDLL:
             lib.pr_tokens_from_pairs.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
             lib.pr_assemble_split.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, p, i64,
                                               i64, i64, p]
-            lib.pr_encode_l1_phases.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64,
+            lib.pr_encode_l1_phases.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64,
                                                 ctypes.c_int, ctypes.c_int, p]
             lib.pr_decode_l1_phases.argtypes = [p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
             lib.pr_probe_butterfly.argtypes = [p, p, p, ctypes.c_int, i64, i64, p]
@@ -136,6 +136,8 @@ def load() -> ctypes.CDLL:
                        lib.pr_pairs_tiles, lib.pr_label_tiles):
                 fn.argtypes = [i64]
                 fn.restype = i64
+            lib.pr_encode_scratch_words.argtypes = [i64, i64, ctypes.c_int, ctypes.c_int]
+            lib.pr_encode_scratch_words.restype = i64
             lib.pr_positions_status_words.argtypes = [i64, i64]
             lib.pr_positions_status_words.restype = i64
             lib.pr_split_window_words.argtypes = []

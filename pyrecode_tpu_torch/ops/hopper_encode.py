@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _launch
+from . import _build, _launch
 from .bitpack import pack_bits
 from .compact import stream_compact
 
@@ -76,6 +76,14 @@ def _check(frames: torch.Tensor, threshold: torch.Tensor, with_values: bool = Tr
     if pairs_out and (H * W + 7) // 8 >= MAX_PAIR_BYTES:
         raise ValueError(f"pairs need bitmaps of fewer than {MAX_PAIR_BYTES} bytes, "
                          f"got {(H * W + 7) // 8}")
+
+
+def _scratch(B: int, n: int, with_values: bool, pairs: bool, device) -> torch.Tensor:
+    """The kernel's int32 scratch: a foreground count a (frame, tile), a
+    nonzero-byte count too with pairs, and the staged values of each
+    (frame, tile) with values (``pr_encode_scratch_words``)."""
+    words = _build.load().pr_encode_scratch_words(B, n, int(with_values), int(pairs))
+    return torch.empty(words, dtype=torch.int32, device=device)
 
 
 def bitmap_pairs(bitmap: torch.Tensor, pairs_out: int):
@@ -137,23 +145,20 @@ def encode_l1(frames: torch.Tensor, threshold: torch.Tensor, out_size: int,
     comp = torch.empty((B, out_size if with_values else 0), dtype=torch.int32, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
+    scratch = _scratch(B, n, with_values, bool(pairs_out), dev)
     pos = torch.empty_like(comp) if with_positions else None
     if with_positions:
         POSITIONS_LAUNCHES.add()
-    pairs = pair_counts = pair_tiles = pair_overflow = None
+    pairs = pair_counts = None
     if pairs_out:
         pairs = torch.empty((B, pairs_out), dtype=torch.int32, device=dev)
         pair_counts = torch.empty(B, dtype=torch.int32, device=dev)
-        pair_tiles = torch.empty_like(tiles)
-        pair_overflow = torch.empty(B, dtype=torch.bool, device=dev)
         PAIRS_LAUNCHES.add()
-    opt = [_launch.ptr(t) if t is not None else None
-           for t in (pos, pairs, pair_counts, pair_tiles, pair_overflow)]
+    opt = [_launch.ptr(t) if t is not None else None for t in (pos, pairs, pair_counts)]
     _launch.launch(LAUNCHES, "pr_encode_l1", dev,
                    _launch.ptr(frames), _launch.ptr(threshold), _launch.ptr(bitmap),
                    _launch.ptr(comp), _launch.ptr(counts), _launch.ptr(overflow),
-                   _launch.ptr(tiles), opt[0], pos_vbits, B, n, out_size, int(with_values),
+                   _launch.ptr(scratch), opt[0], pos_vbits, B, n, out_size, int(with_values),
                    *opt[1:], pairs_out)
     if with_positions:
         return bitmap, comp, counts, overflow, pos
@@ -190,10 +195,11 @@ def encode_l1_phases(frames: torch.Tensor, threshold: torch.Tensor, out_size: in
     truncated kernels of tools/probe_phases.py:build_phase_kernel).  Returns
 
     * "load": (sums (B, n_tiles) int64,), frame - threshold summed over each
-      tile of TILE_PIXELS pixels: the dense read of pass 1 alone;
-    * "bitmap": (bitmap, tiles (B, n_tiles) int32 foreground counts): pass 1;
+      tile of TILE_PIXELS pixels: the dense pass's read alone;
+    * "bitmap": (bitmap, tiles (B, n_tiles) int32 foreground counts): the
+      dense pass;
     * "scan": (bitmap, tile offsets (B, n_tiles) int32, counts, overflow):
-      then the tile scan;
+      then the placing kernel's offsets, no value moved;
     * "full": :func:`encode_l1`'s outputs without positions or pairs.
     """
     if stop_after not in PHASES:
@@ -214,11 +220,12 @@ def encode_l1_phases(frames: torch.Tensor, threshold: torch.Tensor, out_size: in
     tiles = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
     sums = torch.empty((B, n_tiles) if stop_after == "load" else (0,), dtype=torch.int64,
                        device=dev)
+    scratch = _scratch(B, n, with_values, False, dev)
     _launch.launch(PHASES_LAUNCHES, "pr_encode_l1_phases", dev,
                    _launch.ptr(frames), _launch.ptr(threshold), _launch.ptr(bitmap),
                    _launch.ptr(comp), _launch.ptr(counts), _launch.ptr(overflow),
-                   _launch.ptr(tiles), _launch.ptr(sums), B, n, out_size, int(with_values),
-                   PHASES.index(stop_after))
+                   _launch.ptr(tiles), _launch.ptr(sums), _launch.ptr(scratch), B, n, out_size,
+                   int(with_values), PHASES.index(stop_after))
     if stop_after == "load":
         return (sums,)
     if stop_after == "bitmap":

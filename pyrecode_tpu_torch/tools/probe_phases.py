@@ -7,9 +7,9 @@ phases are the passes of its own kernel, ``csrc/encode_l1.cu``, launched
 unchanged and cut after each (``hopper_encode.encode_l1_phases``):
 
     load   : frame and threshold read once, summed a tile   (the HBM floor)
-    bitmap : pass 1: threshold, ballot bitmap, tile counts  (L3's first pass)
-    scan   : + the tile scan: offsets, counts, overflow     (TPU cumsum, offsets)
-    full   : + the value scatter: the production encode_l1 (TPU select, concat, full)
+    bitmap : the dense pass: bitmap bytes, tile counts      (TPU bitmap)
+    scan   : + the placing kernel's offsets, counts, overflow (TPU cumsum, offsets)
+    full   : + staged values placed, zeros: encode_l1       (TPU select, concat, full)
 
 Each line: the phase's ms a batch (CUDA events), GB/s of raw frames, the
 delta against the phase before it, and the phase's bound: the bytes it must

@@ -63,22 +63,58 @@ def test_bitunpack12_matches_twin(cuda):
     _equal([hopper_bitpack.bitunpack12(b)], [hopper_bitpack.bitunpack12_plain(b)])
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+# (37, 29), (1, 4101), (64, 4099): n % 8 != 0 (scalar loads, frames not
+# 16-byte aligned) and a partial last tile; (2048, 2049): 1025 tiles, a
+# look-back of several rounds, vector loads, a partial last tile, and a
+# block walking two or five frames
+ENCODE_SHAPES = [(96, 160), (37, 29), (1, 4101), (64, 4099), (2048, 2049)]
+# random: the 20% frames and two capacities; edges: a 20% frame, an empty
+# one and an all-foreground one; last_tile: one foreground pixel a frame,
+# at its last pixel; batch9: 9 frames
+ENCODE_CASES = ["random", "edges", "last_tile", "batch9"]
+
+
+def _encode_case(case, shape, seed, random_sizes):
+    """Frames and threshold (numpy) of one encode case, and the out_sizes
+    to try: ``random_sizes`` for "random", else 0, n and every frame's
+    foreground count - 1, + 0 and + 1."""
+    n = shape[0] * shape[1]
+    frames, thr = _frames(0.05 if case == "batch9" else 0.2, shape,
+                          batch=9 if case == "batch9" else 3, seed=seed)
+    if case == "random":
+        return frames, thr, random_sizes
+    if case == "edges":
+        frames[1] = 0
+        frames[2] = 4095
+    elif case == "last_tile":
+        frames[:] = 0
+        frames[:, -1, -1] = 4095
+    counts = (frames > thr).reshape(frames.shape[0], -1).sum(axis=1)
+    sizes = {0, n} | {int(c) + d for c in counts for d in (-1, 0, 1)}
+    return frames, thr, sorted(s for s in sizes if s >= 0)
+
+
+@pytest.mark.parametrize("case", ENCODE_CASES)
+@pytest.mark.parametrize("shape", ENCODE_SHAPES)
 @pytest.mark.parametrize("with_values", [True, False])
-def test_encode_l1_matches_twin(cuda, shape, with_values):
-    frames, thr = _frames(0.2, shape, seed=13)
+def test_encode_l1_matches_twin(cuda, shape, with_values, case):
+    n = shape[0] * shape[1]
+    frames, thr, sizes = _encode_case(case, shape, 13, (n, 100))   # fits; overflows
     f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
-    for out_size in (shape[0] * shape[1], 100):   # fits; overflows
+    for out_size in sizes:
         got = hopper_encode.encode_l1(f, t, out_size, with_values)
         _equal(got, hopper_encode.encode_l1_plain(f, t, out_size, with_values))
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
-def test_encode_l1_positions_matches_twin(cuda, shape):
-    frames, thr = _frames(0.2, shape, seed=17)
-    frames[0, 0, :5] = 4095 + np.arange(5, dtype=np.uint16) * 1000   # values above 12 bits
+@pytest.mark.parametrize("case", ENCODE_CASES)
+@pytest.mark.parametrize("shape", ENCODE_SHAPES)
+def test_encode_l1_positions_matches_twin(cuda, shape, case):
+    n = shape[0] * shape[1]
+    frames, thr, sizes = _encode_case(case, shape, 17, (n, 100))   # fits; overflows
+    if case != "last_tile":
+        frames[0, 0, :5] = 4095 + np.arange(5, dtype=np.uint16) * 1000   # values above 12 bits
     f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
-    for out_size in (shape[0] * shape[1], 100):   # fits; overflows
+    for out_size in sizes:
         for vbits in (0, 12):
             got = hopper_encode.encode_l1(f, t, out_size, True, True, vbits)
             _equal(got, hopper_encode.encode_l1_plain(f, t, out_size, True, True, vbits))
@@ -475,13 +511,20 @@ def test_bitpack12_words_matches_twin(cuda):
                        hopper_bitpack.bitpack12(small))
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+@pytest.mark.parametrize("case", ENCODE_CASES)
+@pytest.mark.parametrize("shape", ENCODE_SHAPES)
 @pytest.mark.parametrize("with_values", [True, False])
-def test_encode_l1_pairs_matches_twin(cuda, shape, with_values):
-    frames, thr = _frames(0.2, shape, seed=42)
-    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+def test_encode_l1_pairs_matches_twin(cuda, shape, with_values, case):
     n = shape[0] * shape[1]
-    for out_size, pairs_out in ((n, n), (n, 50), (100, n)):   # fits; pairs overflow; values overflow
+    frames, thr, sizes = _encode_case(case, shape, 42, ())
+    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
+    if case == "random":   # fits; pairs overflow; values overflow
+        combos = ((n, n), (n, 50), (100, n))
+    else:   # the values' sizes with room for the pairs; the pair counts' sizes alone
+        pcounts = hopper_encode.encode_l1_plain(f, t, n, pairs_out=n)[5].tolist()
+        psizes = {int(c) + d for c in pcounts for d in (-1, 0, 1)}
+        combos = [(s, n) for s in sizes] + [(n, p) for p in sorted(psizes) if p > 0]
+    for out_size, pairs_out in combos:
         before = hopper_encode.PAIRS_LAUNCHES.value
         got = hopper_encode.encode_l1(f, t, out_size, with_values, pairs_out=pairs_out)
         assert hopper_encode.PAIRS_LAUNCHES.value == before + 1
@@ -551,14 +594,16 @@ def test_assemble_split_matches_twin(cuda):
         [native.deflate_sparse(r) for r in raws]
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+@pytest.mark.parametrize("case", ENCODE_CASES)
+@pytest.mark.parametrize("shape", ENCODE_SHAPES)
 @pytest.mark.parametrize("phase", hopper_encode.PHASES)
-def test_encode_l1_phases_match_twin(cuda, shape, phase):
+def test_encode_l1_phases_match_twin(cuda, shape, phase, case):
     """Each cut-off of the encode against its twin; "full" also against
     encode_l1, and "bitmap" against encode_l1's bitmap."""
-    frames, thr = _frames(0.2, shape, seed=51)
+    n = shape[0] * shape[1]
+    frames, thr, sizes = _encode_case(case, shape, 51, (n, 100))   # fits; overflows
     f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
-    for out_size in (shape[0] * shape[1], 100):   # fits; overflows
+    for out_size in sizes:
         before = hopper_encode.PHASES_LAUNCHES.value
         got = hopper_encode.encode_l1_phases(f, t, out_size, True, phase)
         assert hopper_encode.PHASES_LAUNCHES.value == before + 1
