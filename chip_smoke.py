@@ -85,15 +85,19 @@ bitmaps and statistics streams, and an edge battery, and the four kernels
 of phase 9 on the slice batch and their own edge batteries.  The label
 kernel's battery includes puddles across its tile borders and frames of
 the tile batteries' shapes (label_tile_shapes) and one 1 x 2^20 row; the
-positions decode has a span battery (posdecode_span_battery).  The device
+positions decode has a span battery (posdecode_span_battery); the rANS
+encode step's reciprocal is held against / and % for every f in 1..4096
+(state_battery).  The device
 operations of one call of the L1 encode (slice), the label kernel, the
 positions decode, the three tokenizers (tokenize, tokenize_compact,
-tokens_from_pairs, on the slice bitmaps), the rANS decode (slice gaps) and
-the bitmap -> positions kernel (L2/L3 bitmaps) are timed from one profiler
-trace each (device_passes); the encode's must be its dense pass and its
-placing kernel, the pairs tokenizer's its own three kernels, adler32
-included, the decode's its one kernel and the positions' a memset and its
-two kernels.
+tokens_from_pairs, on the slice bitmaps), the rANS decode and encode
+(slice gaps), the token rANS encode (slice bitmap tokens) and the bitmap ->
+positions kernel (L2/L3 bitmaps) are timed from one profiler trace each
+(device_passes); the encode's must be its dense pass and its placing
+kernel, the pairs tokenizer's its own three kernels, adler32 included, the
+decode's its one kernel, each rANS encode's the copy of m its argument
+check reads, its chain pass and its placing pass, and the positions' a
+memset and its two kernels.
 
 ``python3 chip_smoke.py passes`` prints only the redesigned kernels' times
 (kernel_passes): CUDA-event ms, host ms and the device operations of one
@@ -195,6 +199,10 @@ RANS_DECODE_PASSES = ("rans_decode_kernel",)
 BITMAP_POSITIONS_PASSES = ("gpu_memset", "pos_tile_kernel", "pos_tail_kernel")
 # ... and of one encode_l1 call: the dense pass, then the placing and zero-tail kernel
 ENCODE_L1_PASSES = ("encode_tile_kernel", "encode_place_kernel")
+# ... and of one rans_encode or rans_encode_tokens call: the argument check's
+# copy of m (m <= npad, and the scratch's rows), the chain pass, the placing
+# pass (zeros included)
+RANS_ENCODE_PASSES = ("gpu_memcpy", "rans_chain_kernel", "rans_place_kernel")
 TOOL_KERNELS = ("encode_l1_phases", "decode_l1_phases", "probe_mosaic", "probe_f32dot",
                 "probe_butterfly")
 MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
@@ -584,18 +592,19 @@ def reversed_bodies(body, counts):
     return torch.from_numpy(rev).to(body.device), counts
 
 
-def decode_args(device, syms, m, groups: int):
-    """The rANS decode's arguments for symbol streams (B, NPAD) int32 with
-    counts m, coded as check_rans_stream codes them (histogram -> host tables
-    -> encode at ``groups``), and the row count of the longest stream: the
-    length of the decode's serial chain of rows."""
+def coder_args(device, syms, m, groups: int):
+    """The rANS encode's and decode's arguments for symbol streams (B, NPAD)
+    int32 with counts m, coded as check_rans_stream codes them (histogram ->
+    host tables -> encode at ``groups``), and the row count of the longest
+    stream: the length of each lane's chain of rows."""
     freq, cum = rans_tables(hopper_rans.rans_hist(syms, m))
     tables = torch.from_numpy(np.stack([hopper_rans.decode_tables(f) for f in freq])).to(device)
-    body, states, counts = hopper_rans.rans_encode(
-        syms, torch.from_numpy(freq).to(device), torch.from_numpy(cum).to(device), m,
-        2 * int(m.max()) + 16, groups)
+    enc_args = (syms, torch.from_numpy(freq).to(device), torch.from_numpy(cum).to(device), m,
+                2 * int(m.max()) + 16, groups)
+    body, states, counts = hopper_rans.rans_encode(*enc_args)
     rows = -(-int(m.max()) // (hopper_rans.W_LANES * groups))
-    return (*reversed_bodies(body, counts), states, m, tables, max(int(m.max()), 1), groups), rows
+    return enc_args, (*reversed_bodies(body, counts), states, m, tables, max(int(m.max()), 1),
+                      groups), rows
 
 
 def check_rans_stream(device, check, what, syms, m, groups_list=(1,)):
@@ -674,6 +683,11 @@ def check_rans(device, rng, check, frames, thr, out_size, packed):
     m_edge = np.array([0, 70001, 5000, 65537, long], np.int32)
     check_rans_stream(device, check, "edge battery", torch.from_numpy(edge).to(device),
                       torch.from_numpy(m_edge).to(device), groups_list=(1, 8))
+    # the encode step's reciprocal against the division, every f in 1..4096
+    for arrays in state_battery(rng):
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        check("rans_encode", [hopper_rans.rans_encode_state(*args)],
+              [hopper_rans.rans_encode_state_plain(*args)], "state update, every f")
 
     # positions decode of the slice, and of corrupt positions
     dense, overflow = hopper_decode.posdecode(pos, comp, counts, H, W)
@@ -787,6 +801,41 @@ def token_battery(rng):
     return tok.astype(np.int32), m
 
 
+def token_args(device, streams):
+    """The token rANS encode's arguments for the deflate tokens of byte
+    streams (B, N) uint8, as rans_batch_device codes them: the compacted
+    int32 tokens at the batch's token capacity, their host tables, the
+    token counts and the body bound (2 bytes a token + 16)."""
+    full = torch.full((streams.shape[0],), streams.shape[1], dtype=torch.int32, device=device)
+    tok, hist, _ = hopper_deflate.tokenize(streams, full)
+    m = hist[:, :rans.N_SYM].sum(dim=1, dtype=torch.int32)
+    bound = rans.token_capacity(m.cpu().numpy())
+    dense = hopper_deflate.compact_tokens(tok, bound)[0]
+    freq, cum = token_tables(dense.cpu().numpy(), m.cpu().numpy())
+    return (dense, *(torch.from_numpy(a).to(device) for a in (freq, cum)), m, 2 * bound + 16)
+
+
+def state_battery(rng):
+    """(x, f, cum) int32 triples for the encode step's reciprocal against /
+    and %: every f in 1..4096 at x = 2^23, 2^31 - 1, (f << 19) - 1 (the
+    largest state a step divides), q * f - 1, q * f and q * f + 1 for the
+    two smallest q with q * f >= 2^23 and the two largest with q * f < 2^31,
+    and random x below 2^31; three arrays each: cum 0, 4096 - f and
+    random."""
+    f = np.arange(1, 4097, dtype=np.int64)
+    q_lo = -(-(1 << 23) // f)
+    q_hi = ((1 << 31) - 1) // f
+    xs = [np.full_like(f, 1 << 23), np.full_like(f, (1 << 31) - 1),
+          np.minimum((f << 19) - 1, (1 << 31) - 1)]
+    for q in (q_lo, q_lo + 1, q_hi - 1, q_hi):
+        xs += [q * f - 1, q * f, q * f + 1]
+    xs += list(rng.integers(0, 1 << 31, (8, f.size)))
+    x = np.minimum(np.stack(xs), (1 << 31) - 1)
+    ff = np.broadcast_to(f, x.shape)
+    return [tuple(np.ascontiguousarray(a, dtype=np.int32).ravel() for a in (x, ff, c))
+            for c in (np.zeros_like(x), 4096 - ff, rng.integers(0, 4097, x.shape))]
+
+
 def check_rans_tokens(device, rng, check, bitmap):
     """Phase 3, byte mode: the token rANS encode (#9t) against its twin on
     the tokens of the slice's bitmap streams (compacted int32, as
@@ -795,15 +844,8 @@ def check_rans_tokens(device, rng, check, bitmap):
     native.rans_compress at 1024 lanes.  Returns the timing entry at the
     main path's input."""
     B = bitmap.shape[0]
-    full = torch.full((B,), bitmap.shape[1], dtype=torch.int32, device=device)
-    tok, hist, _ = hopper_deflate.tokenize(bitmap, full)
-    m = hist[:, :rans.N_SYM].sum(dim=1, dtype=torch.int32)
-    bound = rans.token_capacity(m.cpu().numpy())
-    dense = hopper_deflate.compact_tokens(tok, bound)[0]
-    freq, cum = token_tables(dense.cpu().numpy(), m.cpu().numpy())
-    tables = [torch.from_numpy(a).to(device) for a in (freq, cum)]
-    out_bound = 2 * bound + 16
-    args = (dense, *tables, m, out_bound)
+    args = token_args(device, bitmap)
+    dense, *tables, m, out_bound = args
     body, states, counts = hopper_rans.rans_encode_tokens(*args)
     check("rans_encode_tokens", [body, states, counts],
           hopper_rans.rans_encode_tokens_plain(*args), "slice bitmap tokens")
@@ -1256,15 +1298,19 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
                      ("tokenize_compact", deflate_timed["slice bitmaps"]["tokenize_compact"][0]),
                      ("tokens_from_pairs", alt_timed["tokens_from_pairs"][0]),
                      ("rans_decode", rans_timed["slice gaps"]["rans_decode"][0]),
+                     ("rans_encode", rans_timed["slice gaps"]["rans_encode"][0]),
+                     ("rans_encode_tokens", tokens_timed[0]),
                      ("bitmap_positions", label_timed["bitmap_positions"][0])):
         out[name]["pass_ms"] = device_passes(fn)
         print(f"  {name:16s} device operations of one call (torch.profiler, ms): "
               f"{out[name]['pass_ms']}")
     # adler32 comes out of the pairs tokenizer's own kernels, no torch op; the
-    # encode, the decode and the positions run no torch op either
+    # encodes, the decode and the positions run no torch op either
     for name, passes in (("encode_l1", ENCODE_L1_PASSES),
                          ("tokens_from_pairs", TOKENS_FROM_PAIRS_PASSES),
                          ("rans_decode", RANS_DECODE_PASSES),
+                         ("rans_encode", RANS_ENCODE_PASSES),
+                         ("rans_encode_tokens", RANS_ENCODE_PASSES),
                          ("bitmap_positions", BITMAP_POSITIONS_PASSES)):
         expect(set(out[name]["pass_ms"]) == set(passes),
                f"{name} ran {sorted(out[name]['pass_ms'])}")
@@ -1976,9 +2022,11 @@ def kernel_passes(device, reps: int = 20) -> dict:
     the slice beside the scatter_ call; the same three figures for
     tokenize, tokenize_compact (at the token bound the writer's density
     hint gives) and tokens_from_pairs on the slice's bitmaps, for
-    rans_decode on the slice's gap and value streams at groups 1 and on
-    ~20% bitmaps as 8-bit symbols at groups 8 (with each call's rows and ms
-    a row), and for bitmap_positions on the L2/L3 puddle bitmaps at the
+    rans_decode and rans_encode on the slice's gap and value streams at
+    groups 1 and on ~20% bitmaps as 8-bit symbols at groups 8, and for
+    rans_encode_tokens on the slice's bitmap tokens (each with its rows, ms
+    a row and, where the call has one, its chain pass's ms a row), and for
+    bitmap_positions on the L2/L3 puddle bitmaps at the
     writer's capacity.  It times whichever pyrecode_tpu_torch is imported, so
     it also measures an older tree put first on sys.path (PERF.md)."""
     rng = np.random.default_rng(SEED)
@@ -2021,13 +2069,19 @@ def kernel_passes(device, reps: int = 20) -> dict:
     thr20 = torch.from_numpy(dark20 + EPSILON).to(device)
     c20 = hopper_encode.encode_l1_plain(dense, thr20, 0, with_values=False)[2]
     bm20 = hopper_encode.encode_l1(dense, thr20, _bucket_for(int(c20.max()), n))[0]
-    decodes = {}
+    # ... and rans_encode on the same streams and tables, rans_encode_tokens
+    # on the slice's bitmap tokens as phase 3 codes them
+    chains = {}
     for what, syms, m, groups in (
             ("gaps", gaps, counts, 1), ("values", values, counts, 1),
             ("bitmaps8", bm20.to(torch.int32).contiguous(),
              torch.full((4,), bm20.shape[1], dtype=torch.int32, device=device), 8)):
-        args, rows = decode_args(device, syms, m, groups)
-        decodes[what] = (lambda a=args: hopper_rans.rans_decode(*a)), rows
+        enc_args, dec_args, rows = coder_args(device, syms, m, groups)
+        chains[f"rans_decode_{what}"] = (lambda a=dec_args: hopper_rans.rans_decode(*a)), rows
+        chains[f"rans_encode_{what}"] = (lambda a=enc_args: hopper_rans.rans_encode(*a)), rows
+    tok_args = token_args(device, bitmap)
+    chains["rans_encode_tokens"] = (lambda: hopper_rans.rans_encode_tokens(*tok_args),
+                                    -(-int(tok_args[3].max()) // hopper_rans.W_LANES))
     # bitmap_positions: the L2/L3 puddle bitmaps at the writer's capacity
     l2_bitmap = hopper_label.encode_l2l4(puddles, pthr, "l2sum", psize, 4095)[0]
     pos_bound = 2 * -(-l2_bitmap.shape[1] // 16384) * 16384
@@ -2041,9 +2095,10 @@ def kernel_passes(device, reps: int = 20) -> dict:
            for p in hopper_encode.PHASES},
     }
     calls = {**encodes, "count_foreground": lambda: count_foreground(frames, thr),
-             **tokenizers, **{f"rans_decode_{k}": fn for k, (fn, _) in decodes.items()},
+             **tokenizers, **{name: fn for name, (fn, _) in chains.items()},
              "bitmap_positions": lambda: hopper_gaps.bitmap_positions(l2_bitmap, pos_bound)}
     times = {name: cuda_event_time(fn, reps, 3) for name, fn in calls.items()}
+    passes = {name: device_passes(fn) for name, fn in calls.items()}
     return {
         "encode_l1_out_size": size,
         **{f"{name}_bound_ms": io_bytes(frames, thr, fn()) / HBM_BYTES_PER_S * 1e3
@@ -2051,10 +2106,12 @@ def kernel_passes(device, reps: int = 20) -> dict:
         "tokenize_compact_bound": bound,
         **{f"{name}_ms": times[name] for name in calls},
         **{f"{name}_host_ms": host_ms(fn) for name, fn in calls.items()},
-        **{f"{name}_passes": device_passes(fn) for name, fn in calls.items()},
-        **{f"rans_decode_{k}_rows": rows for k, (_, rows) in decodes.items()},
-        **{f"rans_decode_{k}_ms_per_row": times[f"rans_decode_{k}"] / rows
-           for k, (_, rows) in decodes.items()},
+        **{f"{name}_passes": passes[name] for name in calls},
+        **{f"{name}_rows": rows for name, (_, rows) in chains.items()},
+        **{f"{name}_ms_per_row": times[name] / rows for name, (_, rows) in chains.items()},
+        # the chain pass alone over the rows: the measured step of one lane
+        **{f"{name}_chain_ms_per_row": passes[name]["rans_chain_kernel"] / rows
+           for name, (_, rows) in chains.items() if "rans_chain_kernel" in passes[name]},
         "posdecode_ms": cuda_event_time(decode, reps, 3),
         "scatter_ms": cuda_event_time(
             lambda: torch.zeros((4, n + 1), dtype=torch.int16, device=device).scatter_(1, idx, src),

@@ -107,9 +107,11 @@ def load() -> ctypes.CDLL:
             lib.pr_assemble.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, i64, i64, i64,
                                         p]
             lib.pr_rans_hist.argtypes = [p, p, p, i64, i64, p]
-            lib.pr_rans_encode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
-            lib.pr_rans_encode_tokens.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, i64,
-                                                  i64, p]
+            lib.pr_rans_encode.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64,
+                                           ctypes.c_int, p]
+            lib.pr_rans_encode_tokens.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, i64, i64,
+                                                  i64, i64, p]
+            lib.pr_rans_encode_state.argtypes = [p, p, p, p, i64, p]
             lib.pr_rans_decode.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
             lib.pr_posdecode.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             lib.pr_label_l2l4.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64,
@@ -127,7 +129,8 @@ def load() -> ctypes.CDLL:
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_bitpack12_words, lib.pr_encode_l1,
                        lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
                        lib.pr_assemble, lib.pr_rans_hist, lib.pr_rans_encode,
-                       lib.pr_rans_encode_tokens, lib.pr_rans_decode, lib.pr_posdecode, lib.pr_label_l2l4,
+                       lib.pr_rans_encode_tokens, lib.pr_rans_encode_state, lib.pr_rans_decode,
+                       lib.pr_posdecode, lib.pr_label_l2l4,
                        lib.pr_bitmap_positions, lib.pr_tokens_from_pairs, lib.pr_assemble_split,
                        lib.pr_encode_l1_phases, lib.pr_decode_l1_phases, lib.pr_probe_butterfly,
                        lib.pr_probe_f32dot, lib.pr_probe_mosaic):
@@ -138,6 +141,8 @@ def load() -> ctypes.CDLL:
                 fn.restype = i64
             lib.pr_encode_scratch_words.argtypes = [i64, i64, ctypes.c_int, ctypes.c_int]
             lib.pr_encode_scratch_words.restype = i64
+            lib.pr_rans_encode_scratch_words.argtypes = [i64, i64, ctypes.c_int]
+            lib.pr_rans_encode_scratch_words.restype = i64
             lib.pr_positions_status_words.argtypes = [i64, i64]
             lib.pr_positions_status_words.restype = i64
             lib.pr_split_window_words.argtypes = []

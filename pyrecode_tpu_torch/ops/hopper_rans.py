@@ -8,6 +8,10 @@
   rans_encode_symbols_pallas, groups 1 and 8: the contract of
   codecs/rans.py:rans_encode_interleaved at nways = 1024 * groups.  It takes
   the frequency table and its prefix (``cum``), not the TPU's radix LUT.
+  A call is a chain pass (each lane's states and bytes, a thread a lane)
+  and a placing pass (each row's bytes at their place, the zeros after
+  the count); a step divides by the symbol's exact reciprocal
+  (:func:`rans_encode_state` exposes that update for the tests).
 * :func:`rans_encode_tokens` (the same source, token mode) replaces
   rans_encode_pallas: the byte-mode encode of deflate tokens, the contract
   of rans_encode_interleaved(_token_syms_and_extras(lut_idx)[0], freq,
@@ -26,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _launch
+from . import _build, _launch
 from .hopper_deflate import LEN_BASE, NO_TOKEN
 
 W_LANES = 1024             # interleaved states per group (format log2_nways = 10)
@@ -41,6 +45,7 @@ TOKEN_SYMBOL = tuple(range(256)) + tuple(
 HIST_LAUNCHES = _launch.LaunchCounter()
 ENCODE_LAUNCHES = _launch.LaunchCounter()
 ENCODE_TOKENS_LAUNCHES = _launch.LaunchCounter()
+ENCODE_STATE_LAUNCHES = _launch.LaunchCounter()
 DECODE_LAUNCHES = _launch.LaunchCounter()
 
 _U32 = 0xFFFFFFFF
@@ -89,7 +94,9 @@ def rans_hist(values: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- encode
 
 
-def _check_tables(tok, freq, cum, m, out_bound) -> None:
+def _check_tables(tok, freq, cum, m, out_bound) -> int:
+    """Checks the encode's arguments; returns the largest m (0 for no
+    streams), read back from the device as one copy of m."""
     B = tok.shape[0]
     _launch.require(freq, "freq", torch.int32, 2)
     _launch.require(cum, "cum", torch.int32, 2)
@@ -99,14 +106,28 @@ def _check_tables(tok, freq, cum, m, out_bound) -> None:
             raise ValueError(f"{name} must be ({B}, {ALPHABET}), got {tuple(t.shape)}")
     if out_bound < 0:
         raise ValueError(f"out_bound must be >= 0, got {out_bound}")
-    if B and int(m.max()) > tok.shape[1]:
-        raise ValueError(f"m ({int(m.max())}) exceeds the {tok.shape[1]} symbols given")
+    m_max = int(m.cpu().max()) if B else 0
+    if m_max > tok.shape[1]:
+        raise ValueError(f"m ({m_max}) exceeds the {tok.shape[1]} symbols given")
+    return m_max
 
 
 def _check_encode(values, freq, cum, m, out_bound, groups):
+    """Checks the arguments; returns nways and the largest m."""
     _launch.require(values, "values", torch.int32, 2)
-    _check_tables(values, freq, cum, m, out_bound)
-    return _check_groups(groups)
+    m_max = _check_tables(values, freq, cum, m, out_bound)
+    return _check_groups(groups), m_max
+
+
+def _encode_outputs(B: int, out_bound: int, m_max: int, nways: int, dev):
+    """The kernels' body, states, counts and scratch, and the scratch's rows
+    (the longest stream's rows of nways symbols)."""
+    rows = -(-m_max // nways)
+    words = _build.load().pr_rans_encode_scratch_words(B, rows, nways)
+    return (torch.empty((B, out_bound), dtype=torch.uint8, device=dev),
+            torch.empty((B, nways), dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(words, dtype=torch.int32, device=dev), rows)
 
 
 def _encode_rows(f_pos, c_pos, m, out_bound: int, nways: int):
@@ -146,7 +167,7 @@ def _encode_rows(f_pos, c_pos, m, out_bound: int, nways: int):
 def rans_encode_plain(values, freq, cum, m, out_bound: int, groups: int = 1):
     """Plain PyTorch version of :func:`rans_encode`, on any device: the rows
     of codecs/rans.py:rans_encode_interleaved, vectorized over lanes."""
-    nways = _check_encode(values, freq, cum, m, out_bound, groups)
+    nways, _ = _check_encode(values, freq, cum, m, out_bound, groups)
     s = values.to(torch.int64) & (ALPHABET - 1)
     f_pos = torch.gather(freq.to(torch.int64).clamp(min=1), 1, s)
     c_pos = torch.gather(cum.to(torch.int64), 1, s)
@@ -163,26 +184,26 @@ def rans_encode(values: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor, m: 
     (B, 1024 * groups) int32, counts (B,) int32 body bytes).  A count above
     ``out_bound`` means the body did not fit (bytes past it are dropped).
     """
-    _check_encode(values, freq, cum, m, out_bound, groups)
+    nways, m_max = _check_encode(values, freq, cum, m, out_bound, groups)
     if _launch.on_host(values, freq, cum, m):
         return rans_encode_plain(values, freq, cum, m, out_bound, groups)
     B, npad = values.shape
     dev = values.device
-    body = torch.zeros((B, out_bound), dtype=torch.uint8, device=dev)
-    states = torch.empty((B, groups * W_LANES), dtype=torch.int32, device=dev)
-    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    body, states, counts, scratch, rows = _encode_outputs(B, out_bound, m_max, nways, dev)
     if B:
         _launch.launch(ENCODE_LAUNCHES, "pr_rans_encode", dev, _launch.ptr(values),
                        _launch.ptr(freq), _launch.ptr(cum), _launch.ptr(m), _launch.ptr(body),
-                       _launch.ptr(states), _launch.ptr(counts), B, npad, out_bound, groups)
+                       _launch.ptr(states), _launch.ptr(counts), _launch.ptr(scratch), B, npad,
+                       rows, out_bound, groups)
     return body, states, counts
 
 
-def _check_tokens(tok, freq, cum, m, out_bound):
+def _check_tokens(tok, freq, cum, m, out_bound) -> int:
+    """Checks the arguments; returns the largest m."""
     if tok.dtype not in (torch.uint16, torch.int32):
         raise TypeError(f"tok must be uint16 or int32, got {tok.dtype}")
     _launch.require(tok, "tok", tok.dtype, 2)
-    _check_tables(tok, freq, cum, m, out_bound)
+    return _check_tables(tok, freq, cum, m, out_bound)
 
 
 def rans_encode_tokens_plain(tok, freq, cum, m, out_bound: int):
@@ -214,20 +235,45 @@ def rans_encode_tokens(tok: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,
     1024) int32, counts (B,) int32 body bytes; above ``out_bound`` the body
     did not fit and bytes past it are dropped).
     """
-    _check_tokens(tok, freq, cum, m, out_bound)
+    m_max = _check_tokens(tok, freq, cum, m, out_bound)
     if _launch.on_host(tok, freq, cum, m):
         return rans_encode_tokens_plain(tok, freq, cum, m, out_bound)
     B, npad = tok.shape
     dev = tok.device
-    body = torch.zeros((B, out_bound), dtype=torch.uint8, device=dev)
-    states = torch.empty((B, W_LANES), dtype=torch.int32, device=dev)
-    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    body, states, counts, scratch, rows = _encode_outputs(B, out_bound, m_max, W_LANES, dev)
     if B:
         _launch.launch(ENCODE_TOKENS_LAUNCHES, "pr_rans_encode_tokens", dev, _launch.ptr(tok),
                        int(tok.dtype == torch.int32), _launch.ptr(freq), _launch.ptr(cum),
                        _launch.ptr(m), _launch.ptr(body), _launch.ptr(states),
-                       _launch.ptr(counts), B, npad, out_bound)
+                       _launch.ptr(counts), _launch.ptr(scratch), B, npad, rows, out_bound)
     return body, states, counts
+
+
+def rans_encode_state_plain(x, freq, cum):
+    """Plain PyTorch version of :func:`rans_encode_state`, on any device."""
+    xs = x.to(torch.int64) & _U32
+    f = freq.to(torch.int64).clamp(min=1)
+    out = ((xs // f) << PROB_BITS) + xs % f + cum.to(torch.int64)
+    return (out & _U32).to(torch.int32)   # the u32 state's bits
+
+
+def rans_encode_state(x: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
+    """The state update of one encode step, x -> (x / f << 12) + x % f +
+    cum, as the encode kernels compute it (by a reciprocal, without a
+    division): x (n,) int32 holding u32 states below 2^31, freq and cum
+    (n,) int32 of at most 4096 (f = 0 codes as 1).  Returns (n,) int32
+    holding the u32 results.  For tests that hold the reciprocal against
+    the division."""
+    for t, name in ((x, "x"), (freq, "freq"), (cum, "cum")):
+        _launch.require(t, name, torch.int32, 1)
+    if not x.shape == freq.shape == cum.shape:
+        raise ValueError(f"x, freq and cum differ in shape: {x.shape}, {freq.shape}, {cum.shape}")
+    if _launch.on_host(x, freq, cum):
+        return rans_encode_state_plain(x, freq, cum)
+    out = torch.empty_like(x)
+    _launch.launch(ENCODE_STATE_LAUNCHES, "pr_rans_encode_state", x.device, _launch.ptr(x),
+                   _launch.ptr(freq), _launch.ptr(cum), _launch.ptr(out), x.numel())
+    return out
 
 
 # --------------------------------------------------------------------- decode

@@ -17,9 +17,9 @@ import pyrecode_tpu_torch as port
 from pyrecode_tpu_torch import InputParams, native
 from pyrecode_tpu_torch.codecs import rans
 from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tables
-from pyrecode_tpu_torch.ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode,
-                                    hopper_gaps, hopper_label, hopper_probes, hopper_rans,
-                                    hopper_tokens)
+from pyrecode_tpu_torch.ops import (_launch, hopper_bitpack, hopper_decode, hopper_deflate,
+                                    hopper_encode, hopper_gaps, hopper_label, hopper_probes,
+                                    hopper_rans, hopper_tokens)
 from chip_smoke import (label_edge_frames, label_tile_shapes, make_puddle_frames,
                         posdecode_span_battery)
 
@@ -138,30 +138,135 @@ def test_rans_hist_matches_twin(cuda):
     _equal([hopper_rans.rans_hist(v, mm)], [hopper_rans.rans_hist_plain(v, mm)])
 
 
-@pytest.mark.parametrize("groups", [1, 8])
-def test_rans_encode_decode_match_twins(cuda, groups):
-    # m not a multiple of 1024; a one-symbol alphabet; m = 0; all 4096 symbols
-    vals, freq, cum, m = _symbols(19, 5, 70000, [70000, 1025, 5000, 0, 65537])
-    vals[2] = 7
-    freq[2] = 0
-    freq[2, 7] = 4096
-    cum[2] = 0
-    cum[2, 8:] = 4096
-    args = [torch.from_numpy(a).to(cuda) for a in (vals, freq, cum, m)]
-    out_bound = 2 * 70000 + 16
-    got = hopper_rans.rans_encode(*args, out_bound, groups)
-    _equal(got, hopper_rans.rans_encode_plain(*args, out_bound, groups))
-    body, states, counts = got
-    rev = torch.stack([torch.flip(torch.nn.functional.pad(body[b, :int(counts[b])],
-                                                          (out_bound - int(counts[b]), 0)), [0])
-                       for b in range(5)]).contiguous()
+def _tables(vals, m):
+    """Quantized tables (B, 4096) int32 of each stream's first m symbols,
+    masked to 12 bits as the encode masks them, and their prefix."""
+    hist = np.stack([np.bincount(vals[b, :m[b]] & 4095, minlength=4096) for b in range(len(m))])
+    freq = np.stack([rans.quantize_freqs(h).astype(np.int32) for h in hist])
+    cum = np.zeros_like(freq)
+    cum[:, 1:] = np.cumsum(freq, axis=1)[:, :-1]
+    return freq, cum
+
+
+def _junk_past(vals, m):
+    """Symbols the encode must not read past each stream's m: negative, and
+    at and past 4096."""
+    junk = np.array([-1, 4096, 99999, -2**31, 2**31 - 1], np.int32)
+    for b, k in enumerate(m):
+        vals[b, k:] = np.resize(junk, vals.shape[1] - k)
+
+
+# mixed: m not a multiple of 1024, a one-symbol alphabet, m = 0, all 4096
+# symbols (unaligned: the same with the tables 4 bytes off a 16-byte
+# boundary, read without vector loads); f1: every symbol at f = 1 (12 bits a symbol, the first two bytes
+# and then one or two a symbol); rows9: nine streams of m = 0, 1, nways - 1,
+# nways, nways + 1 and longer, with junk past m and symbols outside 0..4095
+# inside it (masked to 12 bits); long8: 2^21 + 1000 symbols beside a short
+# stream; many40: 40 streams of different lengths; empty: three streams of
+# m = 0 (no scratch rows at all)
+RANS_ENCODE_CASES = [("mixed", 1), ("mixed", 8), ("unaligned", 1), ("f1", 1), ("rows9", 1), ("rows9", 8),
+                     ("long8", 8), ("many40", 1), ("empty", 1)]
+
+
+def _rans_encode_case(case, groups):
+    """Symbols (B, NPAD) int32, tables, m and the symbols each stream
+    decodes to (the first m, masked to 12 bits)."""
+    nways = hopper_rans.W_LANES * groups
+    rng = np.random.default_rng(19)
+    if case in ("mixed", "unaligned"):
+        vals, freq, cum, m = _symbols(19, 5, 70000, [70000, 1025, 5000, 0, 65537])
+        vals[2] = 7
+        freq[2] = 0
+        freq[2, 7] = 4096
+        cum[2] = 0
+        cum[2, 8:] = 4096
+        return vals, freq, cum, m
+    if case == "f1":
+        vals = rng.integers(0, 4096, (2, 70000)).astype(np.int32)
+        m = np.array([70000, 3333], np.int32)
+        freq = np.ones((2, 4096), np.int32)
+        cum = np.broadcast_to(np.arange(4096, dtype=np.int32), (2, 4096)).copy()
+        return vals, freq, cum, m
+    if case == "rows9":
+        m = np.array([0, 1, nways - 1, nways, nways + 1, 3 * nways + 5, 5000, 20000, 70001],
+                     np.int32)
+        vals = np.minimum(rng.exponential(8.0, (9, 70001)).astype(np.int32), 4095)
+        vals[8, ::97] = rng.integers(-2**31, 2**31, vals[8, ::97].size)
+        _junk_past(vals, m)
+    elif case == "empty":
+        m = np.zeros(3, np.int32)
+        vals = rng.integers(-2**31, 2**31, (3, 5000)).astype(np.int32)
+    elif case == "long8":
+        long = (1 << 21) + 1000
+        m = np.array([long, 3000], np.int32)
+        vals = np.minimum(rng.exponential(8.0, (2, long)).astype(np.int32), 4095)
+        _junk_past(vals, m)
+    else:
+        m = rng.integers(0, 20000, 40).astype(np.int32)
+        m[0] = 20000
+        vals = np.minimum(rng.exponential(8.0, (40, 20000)).astype(np.int32), 4095)
+        vals[-1] = rng.integers(0, 4096, 20000)
+    return (vals, *_tables(vals, m), m)
+
+
+def test_rans_encode_state_matches_division(cuda):
+    """The encode step's reciprocal against / and % on
+    chip_smoke.state_battery: every f in 1..4096 at the ends of the states
+    a step divides and around multiples of f there."""
+    from chip_smoke import state_battery
+
+    for arrays in state_battery(np.random.default_rng(23)):
+        args = [torch.from_numpy(a).to(cuda) for a in arrays]
+        before = hopper_rans.ENCODE_STATE_LAUNCHES.value
+        got = hopper_rans.rans_encode_state(*args)
+        assert hopper_rans.ENCODE_STATE_LAUNCHES.value == before + 1
+        _equal([got], [hopper_rans.rans_encode_state_plain(*args)])
+
+
+def _decodes_to(cuda, encoded, freq, m, groups, want, streams=None):
+    """The decode kernel gives each encoded stream's first m symbols back:
+    ``want`` (B, >= max m) int numpy; only ``streams`` (indices) if given."""
+    body, states, counts = encoded
+    n = counts.cpu().numpy()
+    rev = np.zeros((len(n), max(int(n.max()), 1)), np.uint8)
+    host = body.cpu().numpy()
+    for b in range(len(n)):
+        rev[b, :n[b]] = host[b, :n[b]][::-1]
     tables = torch.from_numpy(np.stack([hopper_rans.decode_tables(f) for f in freq])).to(cuda)
-    dec = (rev, counts, states, args[3], tables, 70000, groups)
-    syms, underflow = hopper_rans.rans_decode(*dec)
-    _equal([syms, underflow], hopper_rans.rans_decode_plain(*dec))
-    assert not bool(underflow.any())
-    for b in range(5):
-        assert torch.equal(syms[b, :m[b]].cpu(), torch.from_numpy(vals[b, :m[b]]))
+    m_t = torch.from_numpy(np.asarray(m, np.int32)).to(cuda)
+    syms, underflow = _check_decode([torch.from_numpy(rev).to(cuda), counts, states, m_t, tables,
+                                     max(int(np.max(m)), 1), groups])
+    for b in range(len(n)) if streams is None else streams:
+        assert not bool(underflow[b])
+        assert np.array_equal(syms[b, :m[b]].cpu().numpy(), want[b, :m[b]])
+
+
+def _bounds(counts):
+    """Body bounds around the largest count: one short, exact, one over, and 0."""
+    c = int(counts.max())
+    return sorted({max(c - 1, 0), c, c + 1, 0})
+
+
+@pytest.mark.parametrize("case, groups", RANS_ENCODE_CASES)
+def test_rans_encode_decode_match_twins(cuda, case, groups):
+    """#9 on each case at a bound that fits and at _bounds (equal to the
+    twin byte for byte, the kernel launched once a call); every stream
+    decodes back to its symbols."""
+    vals, freq, cum, m = _rans_encode_case(case, groups)
+    args = [torch.from_numpy(a).to(cuda) for a in (vals, freq, cum, m)]
+    if case == "unaligned":
+        for i in (1, 2):
+            flat = torch.zeros(args[i].numel() + 1, dtype=torch.int32, device=cuda)
+            flat[1:] = args[i].ravel()
+            args[i] = flat[1:].view(args[i].shape)
+    full = 2 * vals.shape[1] + 16
+    encoded = hopper_rans.rans_encode(*args, full, groups)
+    for out_bound in [full, *_bounds(encoded[2])]:
+        before = hopper_rans.ENCODE_LAUNCHES.value
+        got = hopper_rans.rans_encode(*args, out_bound, groups)
+        assert hopper_rans.ENCODE_LAUNCHES.value == before + 1
+        _equal(got, hopper_rans.rans_encode_plain(*args, out_bound, groups))
+    _decodes_to(cuda, encoded, freq, m, groups, vals & 4095)
 
 
 def _decode_args(cuda, vals, freq, cum, m, groups, width=None, npad=None):
@@ -249,31 +354,70 @@ def test_rans_decode_many_streams_and_long_match_twin(cuda):
     assert torch.equal(syms[0].cpu(), torch.from_numpy(vals[0]))
 
 
-def test_rans_encode_tokens_matches_twin(cuda):
-    """#9t: tokens of byte streams (compacted int32 and uint16), an edge
-    battery (empty, one token, literals only, every length code, a
-    one-symbol alphabet, pad and out-of-range tokens), and a body bound that
-    cuts; the CUDA path launches the kernel, not the twin."""
-    from chip_smoke import token_battery, token_tables
+def _token_case(case, cuda):
+    """Inverted int32 token streams (B, N) and their counts m of a #9t case,
+    and the indices of the streams that hold no pad or out-of-range token
+    before m (those decode back to their tokens' symbols).  streams: the
+    tokens of byte streams, compacted; battery: empty, one token, literals
+    only, every length code, a one-symbol alphabet, pad and out-of-range
+    tokens; rows9: nine streams of m = 0, 1, 1023, 1024, 1025 and longer,
+    pad and out-of-range tokens past m, and among the counted ones in the
+    last; many40: 40 streams of different lengths."""
+    from chip_smoke import token_battery
 
-    raws, streams, lengths = _streams()
-    s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
-    tok, hist, _ = hopper_deflate.tokenize(s, n)
-    m = hist[:, :286].sum(dim=1, dtype=torch.int32)
-    dense = hopper_deflate.compact_tokens(tok, int(m.max()))[0]
-    edge, m_edge = token_battery(np.random.default_rng(21))
-    cases = [(dense, m), (dense.to(torch.int16).view(torch.uint16), m),
-             (torch.from_numpy(edge).to(cuda), torch.from_numpy(m_edge).to(cuda))]
-    for t, k in cases:
-        freq, cum = token_tables(t.cpu().numpy(), k.cpu().numpy())
-        tables = [torch.from_numpy(a).to(cuda) for a in (freq, cum)]
-        for out_bound in (2 * t.shape[1] + 16, 100):   # fits; cuts
+    rng = np.random.default_rng(22)
+    if case == "streams":
+        raws, streams, lengths = _streams()
+        s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
+        tok, hist, _ = hopper_deflate.tokenize(s, n)
+        m = hist[:, :286].sum(dim=1, dtype=torch.int32)
+        dense = hopper_deflate.compact_tokens(tok, int(m.max()))[0]
+        return dense.cpu().numpy(), m.cpu().numpy(), range(len(raws))
+    if case == "battery":
+        tok, m = token_battery(np.random.default_rng(21))
+        return tok, m, range(5)
+    if case == "rows9":
+        m = np.array([0, 1, 1023, 1024, 1025, 3077, 5000, 20000, 70001], np.int32)
+        tok = hopper_rans.NO_TOKEN - rng.integers(0, 512, (9, 70001))
+        junk = np.array([0, 600, 65535, -7, 2**31 - 1])
+        for b, k in enumerate(m):
+            tok[b, k:] = np.resize(junk, tok.shape[1] - k)
+        tok[8, ::97] = np.resize(junk, tok[8, ::97].size)
+        return tok.astype(np.int32), m, range(8)
+    m = rng.integers(0, 20000, 40).astype(np.int32)
+    m[0] = 20000
+    tok = hopper_rans.NO_TOKEN - rng.integers(0, 512, (40, 20000))
+    return tok.astype(np.int32), m, range(40)
+
+
+@pytest.mark.parametrize("case", ["streams", "battery", "rows9", "many40"])
+def test_rans_encode_tokens_matches_twin(cuda, case):
+    """#9t on int32 and uint16 tokens of each case, at a bound that fits,
+    at 100 and at _bounds: equal to the twin byte for byte, the kernel
+    launched once a call (not the twin); the streams without pads decode
+    back to their tokens' symbols; the byte-mode coder of byte streams
+    equals its CPU run."""
+    from chip_smoke import token_tables
+
+    tok, m, clean = _token_case(case, cuda)
+    freq, cum = token_tables(tok, m)
+    tables = [torch.from_numpy(a).to(cuda) for a in (freq, cum)]
+    t32 = torch.from_numpy(tok).to(cuda)
+    k = torch.from_numpy(m).to(cuda)
+    full = 2 * tok.shape[1] + 16
+    encoded = hopper_rans.rans_encode_tokens(t32, *tables, k, full)
+    for t in (t32, _launch.i32_to_u16(t32)):
+        for out_bound in [full, 100, *_bounds(encoded[2])]:
             before = hopper_rans.ENCODE_TOKENS_LAUNCHES.value
             got = hopper_rans.rans_encode_tokens(t, *tables, k, out_bound)
             assert hopper_rans.ENCODE_TOKENS_LAUNCHES.value == before + 1
             _equal(got, hopper_rans.rans_encode_tokens_plain(t, *tables, k, out_bound))
-    assert rans.rans_batch_device(s, lengths) == \
-        rans.rans_batch_device(torch.from_numpy(streams), lengths)
+    idx = np.clip(hopper_rans.NO_TOKEN - tok.astype(np.int64), 0, hopper_rans.NO_TOKEN - 1)
+    _decodes_to(cuda, encoded, freq, m, 1, np.asarray(hopper_rans.TOKEN_SYMBOL)[idx], clean)
+    if case == "streams":
+        _, streams, lengths = _streams()
+        assert rans.rans_batch_device(torch.from_numpy(streams).to(cuda), lengths) == \
+            rans.rans_batch_device(torch.from_numpy(streams), lengths)
 
 
 def test_posdecode_matches_twin(cuda):
