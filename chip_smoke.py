@@ -99,6 +99,10 @@ decode's its one kernel, each rANS encode's the copy of m its argument
 check reads, its chain pass and its placing pass, and the positions' a
 memset and its two kernels.
 
+The bit assembler's two kernels and the histogram's one cluster launch
+are held the same way, and both against their twins on their edge
+batteries (assemble_battery, hist_battery; the split assembly too).
+
 ``python3 chip_smoke.py passes`` prints only the redesigned kernels' times
 (kernel_passes): CUDA-event ms, host ms and the device operations of one
 call each.
@@ -199,6 +203,10 @@ RANS_DECODE_PASSES = ("rans_decode_kernel",)
 BITMAP_POSITIONS_PASSES = ("gpu_memset", "pos_tile_kernel", "pos_tail_kernel")
 # ... and of one encode_l1 call: the dense pass, then the placing and zero-tail kernel
 ENCODE_L1_PASSES = ("encode_tile_kernel", "encode_place_kernel")
+# ... of one assemble call: the tile counts (and the body's zeros), then the placing
+ASSEMBLE_PASSES = ("asm_count_kernel", "asm_place_kernel")
+# ... of one rans_hist call: one cluster launch
+RANS_HIST_PASSES = ("rans_hist_kernel",)
 # ... and of one rans_encode or rans_encode_tokens call: the argument check's
 # copy of m (m <= npad, and the scratch's rows), the chain pass, the placing
 # pass (zeros included)
@@ -496,6 +504,98 @@ def deflate_battery(rng):
     return streams
 
 
+def assemble_battery(rng) -> list:
+    """Token streams at the assembler's edges, (what, tok (B, N) int32, lut
+    (B, 48, 32) float32, phase (B,) int32, partial (B,) int32) in numpy, on
+    random LUTs of 1..21-bit codes (indices 0..15 take 1..3 bits):
+
+    * "empty tiles": 4 tiles a stream, phases 0..7 with random partial bytes;
+      tile 1 holds no token, tile 2 one short token at its end, tile 3 two;
+      tile 0 is dense in even streams and one short token in odd ones, so
+      that a 32-bit word there holds bits of three tiles and the partial;
+    * "ragged": 40 streams of 2 * TILE + 1234 columns (rows not 16-byte
+      aligned), tokens up to a random length at random densities, stream 0
+      with no token and stream 1 a token in every column."""
+    t = hopper_deflate.TILE
+
+    def tables(B):
+        bits = rng.integers(1, hopper_deflate.MAX_TOKEN_BITS + 1, (B, hopper_deflate.NO_TOKEN))
+        bits[:, :16] = rng.integers(1, 4, (B, 16))
+        vals = rng.integers(0, 1 << 30, bits.shape) & ((1 << bits) - 1)
+        lut = np.zeros((B, 2, 768), np.float32)
+        lut[:, 0, :hopper_deflate.NO_TOKEN] = vals
+        lut[:, 1, :hopper_deflate.NO_TOKEN] = bits
+        phase = rng.integers(0, 8, B).astype(np.int32)
+        partial = (rng.integers(0, 256, B) & ((1 << phase) - 1)).astype(np.int32)
+        return lut.reshape(B, 48, 32), phase, partial
+
+    def inverted(idx):
+        return hopper_deflate.NO_TOKEN - idx
+
+    idx = np.full((8, 4 * t), hopper_deflate.NO_TOKEN)
+    dense = rng.random(t) < 0.3
+    for b in range(8):
+        if b % 2 == 0:
+            idx[b, :t] = np.where(dense, rng.integers(0, hopper_deflate.NO_TOKEN, t),
+                                  hopper_deflate.NO_TOKEN)
+        else:
+            idx[b, rng.integers(0, t)] = rng.integers(0, 16)
+        idx[b, 3 * t - 1] = rng.integers(0, 16)
+        idx[b, [3 * t, 3 * t + 100]] = rng.integers(0, 16, 2)
+    lut = tables(8)[0]
+    phase = np.arange(8, dtype=np.int32)
+    partial = (rng.integers(0, 256, 8) & ((1 << phase) - 1)).astype(np.int32)
+    cases = [("empty tiles", inverted(idx).astype(np.int32), lut, phase, partial)]
+
+    n = 2 * t + 1234
+    lengths = rng.integers(0, n + 1, 40)
+    lengths[:2] = [0, n]
+    density = rng.uniform(0.05, 1.0, 40)
+    density[1] = 1.0
+    live = (np.arange(n)[None, :] < lengths[:, None]) & (rng.random((40, n)) < density[:, None])
+    idx = np.where(live, rng.integers(0, hopper_deflate.NO_TOKEN, (40, n)),
+                   hopper_deflate.NO_TOKEN)
+    cases.append(("ragged", inverted(idx).astype(np.int32), *tables(40)))
+    return cases
+
+
+def hist_battery(rng) -> list:
+    """Symbol streams at the histogram's edges, (what, values (B, NPAD)
+    int32, m (B,) int32) in numpy: 2^21 copies of one symbol, all 4096
+    symbols, m = 0 in every stream, symbols outside 0..4095 inside m and
+    junk past it, an odd NPAD with m at 0..3 and NPAD - 3..NPAD (rows not
+    16-byte aligned), 40 streams, and 2^21 + 1000 symbols beside 17."""
+    peaked = lambda shape: np.minimum(rng.exponential(8.0, shape), 4095).astype(np.int32)
+    junk = peaked((4, 10000))
+    junk[:, ::7] = -1
+    junk[:, 3::11] = 4096
+    junk[:, 5::13] = rng.integers(-2**31, 2**31, junk[:, 5::13].shape)
+    odd = 12347
+    long = (1 << 21) + 1000
+    return [
+        ("one symbol 2^21 times", np.full((1, 1 << 21), 7, np.int32),
+         np.array([1 << 21], np.int32)),
+        ("all 4096 symbols", np.stack([rng.permutation(np.tile(np.arange(4096), 3)),
+                                       np.arange(3 * 4096) % 4096]).astype(np.int32),
+         np.array([3 * 4096, 3 * 4096 - 5], np.int32)),
+        ("m = 0", peaked((3, 5000)), np.zeros(3, np.int32)),
+        ("out of range inside m, junk past m", junk, np.array([6000, 10000, 1, 9999], np.int32)),
+        ("odd NPAD", peaked((8, odd)), np.array([0, 1, 2, 3, odd - 3, odd - 2, odd - 1, odd],
+                                                 np.int32)),
+        ("40 streams", peaked((40, 3000)), rng.integers(0, 3001, 40).astype(np.int32)),
+        ("2^21 + 1000 beside 17", peaked((2, long)), np.array([long, 17], np.int32)),
+    ]
+
+
+def assemble_tokens(tok, comp, n_tok: int, lengths):
+    """The tokens the main path assembles: the compacted tokens of sparse
+    streams, the dense tokens sliced to the longest stream of literal-dense
+    ones (deflate_batch_device's two routes)."""
+    cols = min(tok.shape[1], quantize_bound(int(lengths.max()), hopper_deflate.TILE))
+    return comp if 2 * n_tok <= cols else \
+        tok.view(torch.int16)[:, :cols].contiguous().view(torch.uint16)
+
+
 def host_tables(hist, device):
     """The assembler's token LUTs, header phases and partial bytes from a
     tokenizer histogram, as deflate_batch_device builds them."""
@@ -548,11 +648,7 @@ def check_deflate(device, rng, check, bitmap, packed, plens):
               f"without and with a density hint ({hint['density']:.4f})")
 
         if what != "edge battery":
-            # the main path assembles compacted tokens of sparse streams and
-            # dense tokens sliced to the longest stream of literal-dense ones
-            cols = min(streams.shape[1], quantize_bound(int(lens.max()), hopper_deflate.TILE))
-            asm_tok = comp if 2 * n_tok <= cols else \
-                tok.view(torch.int16)[:, :cols].contiguous().view(torch.uint16)
+            asm_tok = assemble_tokens(tok, comp, n_tok, lens)
             # no PyTorch call computes a deflate token stream or bit assembly
             timed[what] = {
                 "tokenize": (lambda s=streams, n=lengths: hopper_deflate.tokenize(s, n),
@@ -571,6 +667,22 @@ def check_deflate(device, rng, check, bitmap, packed, plens):
                     io_bytes(asm_tok, tables, hopper_deflate.assemble(asm_tok, *tables, out_bound)),
                     None),
             }
+    # a generator of its own, so that the later phases' data stay as they were
+    for what, tok, lut, phase, partial in assemble_battery(np.random.default_rng(SEED + 2)):
+        args = [torch.from_numpy(a).to(device) for a in (lut, phase, partial)]
+        total = int(hopper_deflate.assemble_plain(torch.from_numpy(tok), *map(torch.from_numpy, (
+            lut, phase, partial)), 0)[1].max())
+        exact = (total + 7) // 8
+        for kind, t in (("i32", torch.from_numpy(tok).to(device)),
+                        ("u16", _launch.i32_to_u16(torch.from_numpy(tok).to(device)))):
+            for out_bound in (exact, -(-exact // 128) * 128 - 128):
+                got = hopper_deflate.assemble(t, *args, out_bound)
+                want = hopper_deflate.assemble_plain(t, *args, out_bound)
+                check("assemble", got, want, f"{what}, {kind}, out_bound {out_bound}")
+                check("assemble_split", hopper_deflate.assemble_split(t, *args, out_bound), want,
+                      f"{what}, {kind}, out_bound {out_bound}")
+                expect(bool(got[2].any()) == (out_bound < exact),
+                       f"assemble overflow on {what} at out_bound {out_bound}")
     return timed
 
 
@@ -683,6 +795,10 @@ def check_rans(device, rng, check, frames, thr, out_size, packed):
     m_edge = np.array([0, 70001, 5000, 65537, long], np.int32)
     check_rans_stream(device, check, "edge battery", torch.from_numpy(edge).to(device),
                       torch.from_numpy(m_edge).to(device), groups_list=(1, 8))
+    for what, vals, m in hist_battery(np.random.default_rng(SEED + 3)):
+        v, k = torch.from_numpy(vals).to(device), torch.from_numpy(m).to(device)
+        check("rans_hist", [hopper_rans.rans_hist(v, k)], [hopper_rans.rans_hist_plain(v, k)],
+              what)
     # the encode step's reciprocal against the division, every f in 1..4096
     for arrays in state_battery(rng):
         args = [torch.from_numpy(a).to(device) for a in arrays]
@@ -1295,6 +1411,8 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
                      ("label_l2l4", label_modes["l2sum"]),
                      ("posdecode", rans_timed["slice gaps"]["posdecode"][0]),
                      ("tokenize", deflate_timed["slice bitmaps"]["tokenize"][0]),
+                     ("assemble", deflate_timed["slice bitmaps"]["assemble"][0]),
+                     ("rans_hist", rans_timed["slice gaps"]["rans_hist"][0]),
                      ("tokenize_compact", deflate_timed["slice bitmaps"]["tokenize_compact"][0]),
                      ("tokens_from_pairs", alt_timed["tokens_from_pairs"][0]),
                      ("rans_decode", rans_timed["slice gaps"]["rans_decode"][0]),
@@ -1307,6 +1425,8 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     # adler32 comes out of the pairs tokenizer's own kernels, no torch op; the
     # encodes, the decode and the positions run no torch op either
     for name, passes in (("encode_l1", ENCODE_L1_PASSES),
+                         ("assemble", ASSEMBLE_PASSES),
+                         ("rans_hist", RANS_HIST_PASSES),
                          ("tokens_from_pairs", TOKENS_FROM_PAIRS_PASSES),
                          ("rans_decode", RANS_DECODE_PASSES),
                          ("rans_encode", RANS_ENCODE_PASSES),
@@ -2027,7 +2147,11 @@ def kernel_passes(device, reps: int = 20) -> dict:
     rans_encode_tokens on the slice's bitmap tokens (each with its rows, ms
     a row and, where the call has one, its chain pass's ms a row), and for
     bitmap_positions on the L2/L3 puddle bitmaps at the
-    writer's capacity.  It times whichever pyrecode_tpu_torch is imported, so
+    writer's capacity; for rans_hist on the gap, value and 8-bit bitmap
+    streams, for assemble and assemble_split on the slice bitmaps' and
+    values' tokens as phase 3 assembles them, and for bitpack12,
+    bitunpack12, decode_l1 and bitpack12_words on phase 3's inputs, each
+    with its byte bound.  It times whichever pyrecode_tpu_torch is imported, so
     it also measures an older tree put first on sys.path (PERF.md)."""
     rng = np.random.default_rng(SEED)
     frames_np, dark = make_frames(rng, 4, 4096, 4096)
@@ -2082,6 +2206,30 @@ def kernel_passes(device, reps: int = 20) -> dict:
     tok_args = token_args(device, bitmap)
     chains["rans_encode_tokens"] = (lambda: hopper_rans.rans_encode_tokens(*tok_args),
                                     -(-int(tok_args[3].max()) // hopper_rans.W_LANES))
+    # rans_hist on the same symbol streams; assemble and assemble_split on the
+    # slice bitmaps' and values' tokens as phase 3 assembles them
+    packed = hopper_bitpack.bitpack12(comp)
+    full8 = torch.full((4,), bm20.shape[1], dtype=torch.int32, device=device)
+    hists = {"gaps": (gaps, counts), "values": (values, counts),
+             "bitmaps8": (bm20.to(torch.int32).contiguous(), full8)}
+    assembles = {}
+    for what, streams, lengths in (("bitmaps", bitmap, full),
+                                   ("values", packed, (counts * 12 + 7) // 8)):
+        tok, hist, _ = hopper_deflate.tokenize(streams, lengths)
+        n_tok = int(hist[:, :286].sum(dim=1).max())
+        comp_tok = hopper_deflate.tokenize_compact(streams, lengths, n_tok)[0]
+        assembles[what] = (assemble_tokens(tok, comp_tok, n_tok, lengths.cpu().numpy()),
+                           *host_tables(hist, device), 2 * streams.shape[1] + 256)
+    others = {   # rows phase 3 traces no call of, and #7, #8, #11 on the main path's inputs
+        "bitpack12": lambda: hopper_bitpack.bitpack12(comp),
+        "bitunpack12": lambda: hopper_bitpack.bitunpack12(packed),
+        "decode_l1": lambda: hopper_decode.decode_l1(bitmap, values, 4096, 4096),
+        "bitpack12_words": lambda: hopper_bitpack.bitpack12_words(comp),
+        **{f"rans_hist_{what}": (lambda a=args: hopper_rans.rans_hist(*a))
+           for what, args in hists.items()},
+        **{f"{fn}_{what}": (lambda f=getattr(hopper_deflate, fn), a=args: f(*a))
+           for what, args in assembles.items() for fn in ("assemble", "assemble_split")},
+    }
     # bitmap_positions: the L2/L3 puddle bitmaps at the writer's capacity
     l2_bitmap = hopper_label.encode_l2l4(puddles, pthr, "l2sum", psize, 4095)[0]
     pos_bound = 2 * -(-l2_bitmap.shape[1] // 16384) * 16384
@@ -2096,13 +2244,25 @@ def kernel_passes(device, reps: int = 20) -> dict:
     }
     calls = {**encodes, "count_foreground": lambda: count_foreground(frames, thr),
              **tokenizers, **{name: fn for name, (fn, _) in chains.items()},
-             "bitmap_positions": lambda: hopper_gaps.bitmap_positions(l2_bitmap, pos_bound)}
+             "bitmap_positions": lambda: hopper_gaps.bitmap_positions(l2_bitmap, pos_bound),
+             **others}
     times = {name: cuda_event_time(fn, reps, 3) for name, fn in calls.items()}
     passes = {name: device_passes(fn) for name, fn in calls.items()}
+    inputs = {"bitpack12": (comp,), "bitunpack12": (packed,), "decode_l1": (bitmap, values),
+              "bitpack12_words": (comp,),
+              **{f"{fn}_{what}": args[:4] for what, args in assembles.items()
+                 for fn in ("assemble", "assemble_split")}}
     return {
         "encode_l1_out_size": size,
         **{f"{name}_bound_ms": io_bytes(frames, thr, fn()) / HBM_BYTES_PER_S * 1e3
            for name, fn in encodes.items()},
+        **{f"{name}_bound_ms": io_bytes(arrays, others[name]()) / HBM_BYTES_PER_S * 1e3
+           for name, arrays in inputs.items()},
+        # the histogram reads each live symbol once and writes 4096 bins a stream
+        **{f"rans_hist_{what}_bound_ms": (4 * int(m.sum()) + 4 * 4096 * m.shape[0])
+           / HBM_BYTES_PER_S * 1e3 for what, (_, m) in hists.items()},
+        "rans_hist_symbols": {what: int(m.sum()) for what, (_, m) in hists.items()},
+        "assemble_columns": {what: list(args[0].shape) for what, args in assembles.items()},
         "tokenize_compact_bound": bound,
         **{f"{name}_ms": times[name] for name in calls},
         **{f"{name}_host_ms": host_ms(fn) for name, fn in calls.items()},

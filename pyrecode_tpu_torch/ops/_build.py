@@ -104,8 +104,7 @@ def load() -> ctypes.CDLL:
             lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_tokenize.argtypes = [p, p, p, p, p, p, i64, i64, p]
             lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
-            lib.pr_assemble.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, i64, i64, i64,
-                                        p]
+            lib.pr_assemble.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_rans_hist.argtypes = [p, p, p, i64, i64, p]
             lib.pr_rans_encode.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64,
                                            ctypes.c_int, p]

@@ -272,12 +272,11 @@ def assemble(tok: torch.Tensor, lut: torch.Tensor, phase: torch.Tensor, partial:
     totbits = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     tile_bits = torch.empty((B, _launch.deflate_tiles(ncols)), dtype=torch.int32, device=dev)
-    totals = torch.empty(B, dtype=torch.int32, device=dev)
     _launch.launch(ASSEMBLE_LAUNCHES, "pr_assemble", dev,
                    _launch.ptr(tok), int(tok.dtype == torch.int32), _launch.ptr(lut),
                    _launch.ptr(phase), _launch.ptr(partial), _launch.ptr(body),
                    _launch.ptr(totbits), _launch.ptr(overflow), _launch.ptr(tile_bits),
-                   _launch.ptr(totals), B, ncols, out_rounded)
+                   B, ncols, out_rounded)
     return body, totbits, overflow
 
 

@@ -85,7 +85,9 @@ def rans_hist(values: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     if _launch.on_host(values, m):
         return rans_hist_plain(values, m)
     B, npad = values.shape
-    hist = torch.zeros((B, ALPHABET), dtype=torch.int32, device=values.device)
+    if B >= 1 << 16:
+        raise ValueError(f"at most 65535 streams a call, got {B}")
+    hist = torch.empty((B, ALPHABET), dtype=torch.int32, device=values.device)
     _launch.launch(HIST_LAUNCHES, "pr_rans_hist", values.device, _launch.ptr(values),
                    _launch.ptr(m), _launch.ptr(hist), B, npad)
     return hist

@@ -23,6 +23,7 @@ from pyrecode_tpu.reader import merge_parts
 from pyrecode_tpu.writer import ReCoDeWriter as JaxWriter
 from pyrecode_tpu_torch.codecs import dyndeflate as tdd
 from pyrecode_tpu_torch.ops import hopper_deflate as hd
+from chip_smoke import assemble_battery
 
 T = hd.TILE          # the port's tile: bytes per tokenize block, tokens per assemble block
 TA = pdk.CH_A        # the TPU tokenize kernel's grid step
@@ -198,6 +199,34 @@ def test_assemble_matches_jax_and_oracle(name):
     ref, ref_bits = jdd.assemble_bits_np(val[lut_idx[keep]], nbits[lut_idx[keep]],
                                          int(phase[0]), int(partial[0]))
     assert ref_bits == bits and np.array_equal(tbody[0, :ref.size].numpy(), ref)
+
+
+@pytest.fixture(scope="module")
+def empty_tiles():
+    """The assembler's edge battery case of 4 tiles a stream, phases 0..7:
+    tiles of no tokens, a word holding bits of three tiles."""
+    return next(c for c in assemble_battery(np.random.default_rng(27))
+                if c[0] == "empty tiles")[1:]
+
+
+@pytest.mark.parametrize("phase", range(8))
+def test_assemble_empty_tiles_match_jax(empty_tiles, phase):
+    """The plain version against the Pallas kernel (interpret mode) where
+    tiles hold no token and a 32-bit word holds bits of three tiles, at each
+    phase with its partial byte."""
+    tok, lut, phases, partials = (a[phase:phase + 1] for a in empty_tiles)
+    assert int(phases[0]) == phase
+    u16 = tok.astype(np.uint16)
+    out_bound = 2 * tok.shape[1] + 256
+    body, bits, ovf = pdk.assemble_pallas(u16, lut, phases, partials, out_bound,
+                                          nw=pdk.WIN_ROWS_MAX, interpret=True)
+    body, bits = np.asarray(body), int(np.asarray(bits)[0])
+    args = [torch.from_numpy(a) for a in (lut, phases, partials)]
+    for t in (torch.from_numpy(u16), torch.from_numpy(tok)):
+        tbody, tbits, tovf = hd.assemble(t, *args, out_bound)
+        assert int(tbits[0]) == bits and not bool(tovf[0]) and not bool(np.asarray(ovf)[0])
+        assert np.array_equal(tbody[0, :(bits + 7) // 8].numpy(), body[0, :(bits + 7) // 8])
+        assert not tbody[0, (bits + 7) // 8:].any()
 
 
 def test_assemble_overflow_and_bound():

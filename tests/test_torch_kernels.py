@@ -20,8 +20,8 @@ from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tabl
 from pyrecode_tpu_torch.ops import (_launch, hopper_bitpack, hopper_decode, hopper_deflate,
                                     hopper_encode, hopper_gaps, hopper_label, hopper_probes,
                                     hopper_rans, hopper_tokens)
-from chip_smoke import (label_edge_frames, label_tile_shapes, make_puddle_frames,
-                        posdecode_span_battery)
+from chip_smoke import (assemble_battery, hist_battery, label_edge_frames, label_tile_shapes,
+                        make_puddle_frames, posdecode_span_battery)
 
 pytestmark = pytest.mark.gpu
 
@@ -136,6 +136,26 @@ def test_rans_hist_matches_twin(cuda):
     vals, _, _, m = _symbols(18, 4, 50000, [50000, 1025, 0, 33333])
     v, mm = torch.from_numpy(vals).to(cuda), torch.from_numpy(m).to(cuda)
     _equal([hopper_rans.rans_hist(v, mm)], [hopper_rans.rans_hist_plain(v, mm)])
+
+
+HIST_CASES = [what for what, *_ in hist_battery(np.random.default_rng(0))]
+
+
+@pytest.mark.parametrize("case", HIST_CASES)
+def test_rans_hist_edges_match_twin(cuda, case):
+    """One cluster launch a call on the edge battery: one symbol 2^21 times,
+    all 4096 symbols, m = 0, out-of-range symbols inside m and junk past it,
+    rows not 16-byte aligned, 40 streams, a long stream beside a short one."""
+    _, vals, m = next(c for c in hist_battery(np.random.default_rng(24)) if c[0] == case)
+    v, mm = torch.from_numpy(vals).to(cuda), torch.from_numpy(m).to(cuda)
+    before = hopper_rans.HIST_LAUNCHES.value
+    got = hopper_rans.rans_hist(v, mm)
+    assert hopper_rans.HIST_LAUNCHES.value == before + 1
+    _equal([got], [hopper_rans.rans_hist_plain(v, mm)])
+    live = np.arange(vals.shape[1])[None, :] < m[:, None]
+    want = [np.bincount(row[k & (row >= 0) & (row < 4096)], minlength=4096)
+            for row, k in zip(vals, live)]
+    assert np.array_equal(got.cpu().numpy(), np.stack(want))
 
 
 def _tables(vals, m):
@@ -544,6 +564,41 @@ def test_assemble_matches_twin(cuda):
         for out_bound in (2 * streams.shape[1] + 256, 300):   # fits; overflows
             _equal(hopper_deflate.assemble(t, *args, out_bound),
                    hopper_deflate.assemble_plain(t, *args, out_bound))
+
+
+ASSEMBLE_CASES = [what for what, *_ in assemble_battery(np.random.default_rng(0))]
+
+
+@pytest.mark.parametrize("bound", ["exact", "one step under"])
+@pytest.mark.parametrize("dtype", ["u16", "i32"])
+@pytest.mark.parametrize("case", ASSEMBLE_CASES)
+def test_assemble_edges_match_twin(cuda, case, dtype, bound):
+    """Two kernels, one launch a call, on the edge battery: tiles of no
+    tokens, a word holding bits of three tiles, phases 0..7 with their
+    partial bytes, rows of 2 * TILE + 1234 tokens, 40 streams, one with no
+    token; out_bound at ceil(total / 8) and one 128-byte step under it
+    (overflow, the bytes past the bound dropped); zeros past each total.
+    The split form gives the same bytes."""
+    _, tok, lut, phase, partial = next(c for c in assemble_battery(np.random.default_rng(25))
+                                       if c[0] == case)
+    t = torch.from_numpy(tok).to(cuda)
+    if dtype == "u16":
+        t = _launch.i32_to_u16(t)
+    args = [torch.from_numpy(a).to(cuda) for a in (lut, phase, partial)]
+    total = hopper_deflate.assemble_plain(t, *args, 0)[1]
+    exact = (int(total.max()) + 7) // 8
+    out_bound = exact if bound == "exact" else -(-exact // 128) * 128 - 128
+    before = hopper_deflate.ASSEMBLE_LAUNCHES.value
+    got = hopper_deflate.assemble(t, *args, out_bound)
+    assert hopper_deflate.ASSEMBLE_LAUNCHES.value == before + 1
+    want = hopper_deflate.assemble_plain(t, *args, out_bound)
+    _equal(got, want)
+    assert torch.equal(got[1], total)
+    assert bool(got[2].any()) == (bound != "exact")
+    body = got[0].cpu().numpy()
+    used = (total.cpu().numpy() + 7) // 8
+    assert not any(body[b, used[b]:].any() for b in range(body.shape[0]))
+    _equal(hopper_deflate.assemble_split(t, *args, out_bound), got)
 
 
 def test_deflate_batch_matches_native(cuda):

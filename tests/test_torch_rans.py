@@ -65,6 +65,28 @@ def test_hist_matches_pallas(streams):
     assert np.array_equal(got, want)
 
 
+def _hist_edges(case):
+    """Symbol streams of NPAD symbols: out-of-range symbols inside m (and
+    junk past it), or peaked ones (one symbol, and a narrow exponential)."""
+    rng = np.random.default_rng(28)
+    vals = _peaked(rng, (3, NPAD), scale=2.0)
+    if case == "out of range":
+        vals[:, ::5] = -1
+        vals[:, 1::7] = 4096
+        vals[:, 2::9] = rng.integers(-2**31, 2**31, vals[:, 2::9].shape)
+        return vals, np.array([NPAD, 5000, 1], np.int32)
+    vals[1] = 3
+    return vals, np.array([NPAD, NPAD - 1, 4097], np.int32)
+
+
+@pytest.mark.parametrize("case", ["out of range", "peaked"])
+def test_hist_edges_match_pallas(case):
+    vals, m = _hist_edges(case)
+    want = np.asarray(prk.hist_symbols_pallas(vals, m, interpret=True))
+    got = hr.rans_hist(torch.from_numpy(vals), torch.from_numpy(m)).numpy()
+    assert np.array_equal(got, want)
+
+
 @pytest.fixture(scope="module")
 def encoded(streams):
     """The port's and the Pallas encode (groups 1) of the same streams."""
