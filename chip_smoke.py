@@ -99,9 +99,10 @@ decode's its one kernel, each rANS encode's the copy of m its argument
 check reads, its chain pass and its placing pass, and the positions' a
 memset and its two kernels.
 
-The bit assembler's two kernels and the histogram's one cluster launch
-are held the same way, and both against their twins on their edge
-batteries (assemble_battery, hist_battery; the split assembly too).
+The bit assembler's two kernels (and the split form's two), the
+histogram's one cluster launch and the L1 decode's two kernels are held
+the same way, and against their twins on their edge batteries
+(assemble_battery, hist_battery, decode_battery).
 
 ``python3 chip_smoke.py passes`` prints only the redesigned kernels' times
 (kernel_passes): CUDA-event ms, host ms and the device operations of one
@@ -205,6 +206,10 @@ BITMAP_POSITIONS_PASSES = ("gpu_memset", "pos_tile_kernel", "pos_tail_kernel")
 ENCODE_L1_PASSES = ("encode_tile_kernel", "encode_place_kernel")
 # ... of one assemble call: the tile counts (and the body's zeros), then the placing
 ASSEMBLE_PASSES = ("asm_count_kernel", "asm_place_kernel")
+# ... of one assemble_split call: the windows (and the body's zeros), then the placing
+ASSEMBLE_SPLIT_PASSES = ("split_par_kernel", "split_cat_kernel")
+# ... and of one decode_l1 call: the tile counts, then the expand (offsets included)
+DECODE_L1_PASSES = ("decode_count_kernel", "decode_expand_kernel")
 # ... of one rans_hist call: one cluster launch
 RANS_HIST_PASSES = ("rans_hist_kernel",)
 # ... and of one rans_encode or rans_encode_tokens call: the argument check's
@@ -504,6 +509,39 @@ def deflate_battery(rng):
     return streams
 
 
+# decode_battery's frame shapes: (96, 160) rows on 16-byte boundaries; (37,
+# 29) n % 8 != 0 (dense rows off 16-byte boundaries, a partial last byte);
+# (100, 90) n % 16 != 0, bitmap rows of 1125 bytes; (96, 170) bitmap rows of
+# 2040 bytes (not a multiple of 16); (300, 301) all three, 23 tiles, across
+# an expand block's 16
+DECODE_SHAPES = [(96, 160), (37, 29), (100, 90), (96, 170), (300, 301)]
+
+
+def decode_battery(rng, shape, case: str):
+    """Three frames' bitmaps (B, ceil(n / 8)) uint8, with junk bits past n in
+    the last byte, and a list of values (B, V) int32 arrays in numpy, for the
+    L1 decode at the edges of its kernel: "30%" foreground at random;
+    "edges": a frame all set, one all clear, and one whose set bits sit on
+    each side of every tile's and every expand block's first pixel and on
+    the frame's first and last two.  Values (random int32, kept modulo
+    2**16): V = the largest count, one less (an overflow by one), 100 and 0."""
+    n = shape[0] * shape[1]
+    if case == "30%":
+        bits = rng.random((3, n)) < 0.3
+    else:
+        bits = np.zeros((3, n), bool)
+        bits[0] = True
+        edges = [e + d for step in (_launch.TILE_PIXELS, hopper_decode.EXPAND_PIXELS)
+                 for e in range(step, n, step) for d in (-2, -1, 0, 1)]
+        bits[2, [p for p in edges + [0, 1, n - 2, n - 1] if 0 <= p < n]] = True
+    bitmap = np.packbits(bits, axis=1, bitorder="little")
+    if n % 8:
+        bitmap[:, -1] |= (0xFF << (n % 8)) & 0xFF
+    top = int(bits.sum(axis=1).max())
+    values = rng.integers(-2**31, 2**31, (3, top)).astype(np.int32)
+    return bitmap, [np.ascontiguousarray(values[:, :v]) for v in (top, top - 1, min(100, top), 0)]
+
+
 def assemble_battery(rng) -> list:
     """Token streams at the assembler's edges, (what, tok (B, N) int32, lut
     (B, 48, 32) float32, phase (B,) int32, partial (B,) int32) in numpy, on
@@ -515,7 +553,12 @@ def assemble_battery(rng) -> list:
       that a 32-bit word there holds bits of three tiles and the partial;
     * "ragged": 40 streams of 2 * TILE + 1234 columns (rows not 16-byte
       aligned), tokens up to a random length at random densities, stream 0
-      with no token and stream 1 a token in every column."""
+      with no token and stream 1 a token in every column;
+    * "odd columns": 8 streams of 3 * TILE + 1001 columns, phases 0..7 with
+      random partial bytes: no token, one token, one in the last column,
+      short tokens at the ends of tiles 0 and 2 with tile 1 empty (a word of
+      three tiles), tokens dense in tile 3 alone, and three random
+      densities."""
     t = hopper_deflate.TILE
 
     def tables(B):
@@ -556,6 +599,20 @@ def assemble_battery(rng) -> list:
     idx = np.where(live, rng.integers(0, hopper_deflate.NO_TOKEN, (40, n)),
                    hopper_deflate.NO_TOKEN)
     cases.append(("ragged", inverted(idx).astype(np.int32), *tables(40)))
+
+    n = 3 * t + 1001
+    idx = np.full((8, n), hopper_deflate.NO_TOKEN)
+    idx[1, rng.integers(0, n)] = rng.integers(0, hopper_deflate.NO_TOKEN)
+    idx[2, n - 1] = rng.integers(0, hopper_deflate.NO_TOKEN)
+    idx[3, [t - 1, 3 * t - 1, 3 * t]] = rng.integers(0, 16, 3)
+    idx[4, 3 * t:] = rng.integers(0, hopper_deflate.NO_TOKEN, n - 3 * t)
+    for b, d in zip((5, 6, 7), (0.01, 0.3, 1.0)):
+        idx[b] = np.where(rng.random(n) < d, rng.integers(0, hopper_deflate.NO_TOKEN, n),
+                          hopper_deflate.NO_TOKEN)
+    lut = tables(8)[0]
+    phase = np.arange(8, dtype=np.int32)
+    partial = (rng.integers(0, 256, 8) & ((1 << phase) - 1)).astype(np.int32)
+    cases.append(("odd columns", inverted(idx).astype(np.int32), lut, phase, partial))
     return cases
 
 
@@ -1333,6 +1390,16 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
             expect(bool(got[1].all()), "overflow must be set when values < count")
         else:
             expect(not bool(got[1].any()), f"unexpected overflow on {what}")
+    # a generator of its own, so that the later phases' data stay as they were
+    battery_rng = np.random.default_rng(SEED + 3)
+    for shape in DECODE_SHAPES:
+        for case in ("30%", "edges"):
+            bm_np, values_list = decode_battery(battery_rng, shape, case)
+            bm = torch.from_numpy(bm_np).to(device)
+            for vals in (torch.from_numpy(v).to(device) for v in values_list):
+                check("decode_l1", hopper_decode.decode_l1(bm, vals, *shape),
+                      hopper_decode.decode_l1_plain(bm, vals, *shape),
+                      f"{shape[0]}x{shape[1]} {case}, V {vals.shape[1]}")
     dense = hopper_decode.decode_l1(bitmap, values, height, width)[0]
     expected = np.where(frames_np > thr_np, frames_np - thr_np, 0)
     expect(np.array_equal(dense.cpu().numpy(), expected), "decode of encode != residuals")
@@ -1412,6 +1479,8 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
                      ("posdecode", rans_timed["slice gaps"]["posdecode"][0]),
                      ("tokenize", deflate_timed["slice bitmaps"]["tokenize"][0]),
                      ("assemble", deflate_timed["slice bitmaps"]["assemble"][0]),
+                     ("assemble_split", alt_timed["assemble_split"][0]),
+                     ("decode_l1", timed["decode_l1"][0]),
                      ("rans_hist", rans_timed["slice gaps"]["rans_hist"][0]),
                      ("tokenize_compact", deflate_timed["slice bitmaps"]["tokenize_compact"][0]),
                      ("tokens_from_pairs", alt_timed["tokens_from_pairs"][0]),
@@ -1426,6 +1495,8 @@ def check_kernels(device, rng, n_frames=4, height=4096, width=4096, reps=20, pla
     # encodes, the decode and the positions run no torch op either
     for name, passes in (("encode_l1", ENCODE_L1_PASSES),
                          ("assemble", ASSEMBLE_PASSES),
+                         ("assemble_split", ASSEMBLE_SPLIT_PASSES),
+                         ("decode_l1", DECODE_L1_PASSES),
                          ("rans_hist", RANS_HIST_PASSES),
                          ("tokens_from_pairs", TOKENS_FROM_PAIRS_PASSES),
                          ("rans_decode", RANS_DECODE_PASSES),
@@ -2150,8 +2221,9 @@ def kernel_passes(device, reps: int = 20) -> dict:
     writer's capacity; for rans_hist on the gap, value and 8-bit bitmap
     streams, for assemble and assemble_split on the slice bitmaps' and
     values' tokens as phase 3 assembles them, and for bitpack12,
-    bitunpack12, decode_l1 and bitpack12_words on phase 3's inputs, each
-    with its byte bound.  It times whichever pyrecode_tpu_torch is imported, so
+    bitunpack12, decode_l1 (and its P2 cuts decode_l1_store, _count and
+    _scan) and bitpack12_words on phase 3's inputs, each with its byte
+    bound.  It times whichever pyrecode_tpu_torch is imported, so
     it also measures an older tree put first on sys.path (PERF.md)."""
     rng = np.random.default_rng(SEED)
     frames_np, dark = make_frames(rng, 4, 4096, 4096)
@@ -2224,6 +2296,9 @@ def kernel_passes(device, reps: int = 20) -> dict:
         "bitpack12": lambda: hopper_bitpack.bitpack12(comp),
         "bitunpack12": lambda: hopper_bitpack.bitunpack12(packed),
         "decode_l1": lambda: hopper_decode.decode_l1(bitmap, values, 4096, 4096),
+        **{f"decode_l1_{p}": (lambda p=p: hopper_decode.decode_l1_phases(bitmap, values, 4096,
+                                                                         4096, p))
+           for p in hopper_decode.PHASES[:-1]},
         "bitpack12_words": lambda: hopper_bitpack.bitpack12_words(comp),
         **{f"rans_hist_{what}": (lambda a=args: hopper_rans.rans_hist(*a))
            for what, args in hists.items()},
@@ -2249,6 +2324,7 @@ def kernel_passes(device, reps: int = 20) -> dict:
     times = {name: cuda_event_time(fn, reps, 3) for name, fn in calls.items()}
     passes = {name: device_passes(fn) for name, fn in calls.items()}
     inputs = {"bitpack12": (comp,), "bitunpack12": (packed,), "decode_l1": (bitmap, values),
+              **{f"decode_l1_{p}": (bitmap,) for p in hopper_decode.PHASES[:-1]},
               "bitpack12_words": (comp,),
               **{f"{fn}_{what}": args[:4] for what, args in assembles.items()
                  for fn in ("assemble", "assemble_split")}}

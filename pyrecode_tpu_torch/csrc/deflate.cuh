@@ -1,7 +1,8 @@
 // What the deflate tokenize and assemble kernels share: the tile each block
-// walks, the token encoding, and block-wide reductions and scans over one
-// value per thread for blocks of BLOCK threads (common.cuh).  Each
-// reduction or scan takes WARPS elements of the caller's shared memory as
+// walks, the token encoding and the assemblers' token loads, and block-wide
+// reductions and scans over one value per thread for blocks of BLOCK
+// threads (common.cuh).  Each reduction or scan takes WARPS elements of the
+// caller's shared memory as
 // scratch and may be called again with the same scratch: it synchronises
 // the block before it returns.  The two tokenizers (tokenize.cu,
 // tokens_from_pairs.cu) also share the histogram row, the length symbols
@@ -23,6 +24,56 @@ constexpr int NO_TOKEN = 512;
 static_assert(TILE % BLOCK == 0, "a thread owns whole elements of its tile");
 
 __host__ __device__ inline int64_t deflate_tiles(int64_t n) { return (n + TILE - 1) / TILE; }
+
+// LUT index of an inverted token, -1 for no token.
+template <class Tok>
+__device__ __forceinline__ int token_index(Tok v) {
+    const int inv = static_cast<int>(v);
+    return (inv >= 1 && inv <= NO_TOKEN) ? NO_TOKEN - inv : -1;
+}
+
+// The TILE_PER_THREAD tokens of one thread from p0 on as ints (0 past
+// ncols): 16-byte loads from the 16-byte boundary at or before the first
+// token, shifted into place, where the row holds all of them (the bytes
+// read past them lie in the granule of the last one); else one at a time.
+template <class Tok>
+__device__ __forceinline__ void load_tokens(const Tok* __restrict__ row, int64_t ncols,
+                                            int64_t p0, int (&inv)[TILE_PER_THREAD]) {
+    constexpr int V = static_cast<int>(sizeof(Tok));   // 16-byte vectors of a thread's tokens
+    const Tok* p = row + p0;
+    if (p0 + TILE_PER_THREAD <= ncols) {
+        const int off = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15u);
+        const uint4* a = reinterpret_cast<const uint4*>(reinterpret_cast<uintptr_t>(p) - off);
+        uint32_t w[4 * (V + 1)];
+#pragma unroll
+        for (int v = 0; v <= V; ++v) {
+            const uint4 q = v < V || off ? a[v] : make_uint4(0u, 0u, 0u, 0u);
+            w[4 * v] = q.x;
+            w[4 * v + 1] = q.y;
+            w[4 * v + 2] = q.z;
+            w[4 * v + 3] = q.w;
+        }
+        const int qw = off >> 2;
+        const int rb = (off & 3) * 8;
+        uint32_t x[4 * V];
+#pragma unroll
+        for (int j = 0; j < 4 * V; ++j) {
+            const uint32_t lo = qw == 0 ? w[j] : qw == 1 ? w[j + 1] : qw == 2 ? w[j + 2] : w[j + 3];
+            const uint32_t hi = qw == 0 ? w[j + 1] : qw == 1 ? w[j + 2] : qw == 2 ? w[j + 3] : w[j + 4];
+            x[j] = __funnelshift_r(lo, hi, rb);
+        }
+#pragma unroll
+        for (int k = 0; k < TILE_PER_THREAD; ++k) {
+            inv[k] = sizeof(Tok) == 2 ? static_cast<int>((x[k / 2] >> (16 * (k % 2))) & 0xFFFFu)
+                                      : static_cast<int>(x[k]);
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < TILE_PER_THREAD; ++k) {
+            inv[k] = p0 + k < ncols ? static_cast<int>(p[k]) : 0;
+        }
+    }
+}
 
 struct SumOp {
     template <class T>

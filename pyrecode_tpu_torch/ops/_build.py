@@ -101,7 +101,7 @@ def load() -> ctypes.CDLL:
             lib.pr_bitpack12_words.argtypes = [p, p, i64, p]
             lib.pr_encode_l1.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_int, i64, i64, i64,
                                          ctypes.c_int, p, p, i64, p]
-            lib.pr_decode_l1.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
+            lib.pr_decode_l1.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             lib.pr_tokenize.argtypes = [p, p, p, p, p, p, i64, i64, p]
             lib.pr_tokenize_compact.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64, p]
             lib.pr_assemble.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, i64, i64, i64, p]
@@ -117,11 +117,12 @@ def load() -> ctypes.CDLL:
                                           i64, i64, i64, p]
             lib.pr_bitmap_positions.argtypes = [p, p, p, p, p, i64, i64, i64, p]
             lib.pr_tokens_from_pairs.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
-            lib.pr_assemble_split.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, p, i64,
-                                              i64, i64, p]
+            lib.pr_assemble_split.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p, p, i64, i64,
+                                              i64, p]
             lib.pr_encode_l1_phases.argtypes = [p, p, p, p, p, p, p, p, p, i64, i64, i64,
                                                 ctypes.c_int, ctypes.c_int, p]
-            lib.pr_decode_l1_phases.argtypes = [p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]
+            lib.pr_decode_l1_phases.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int,
+                                                p]
             lib.pr_probe_butterfly.argtypes = [p, p, p, ctypes.c_int, i64, i64, p]
             lib.pr_probe_f32dot.argtypes = [p, p, p, ctypes.c_int, i64, i64, i64, p]
             lib.pr_probe_mosaic.argtypes = [ctypes.c_int, p, p, p, p, p]

@@ -34,6 +34,9 @@ POSDECODE_LAUNCHES = _launch.LaunchCounter()
 # output pixels one block of the positions decode owns (csrc/posdecode.cu:
 # SPAN), for batteries that put positions on the spans' edges
 POSDECODE_SPAN = 8192
+# pixels one block of the decode's expand pass owns (csrc/decode_l1.cu:
+# EXPAND_TILES tiles of _launch.TILE_PIXELS), for batteries on its edges
+EXPAND_PIXELS = 16 * _launch.TILE_PIXELS
 PHASES_LAUNCHES = _launch.LaunchCounter()      # the phase probe's cut-offs (P2)
 PHASES = ("store", "count", "scan", "full")     # decode_l1_phases' cut-offs, in order
 
@@ -79,12 +82,10 @@ def decode_l1(bitmap: torch.Tensor, values: torch.Tensor, height: int, width: in
     dev = bitmap.device
     dense = torch.empty((B, height, width), dtype=torch.uint16, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    counts = torch.empty(B, dtype=torch.int32, device=dev)
     tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
     _launch.launch(LAUNCHES, "pr_decode_l1", dev,
                    _launch.ptr(bitmap), _launch.ptr(values), _launch.ptr(dense),
-                   _launch.ptr(overflow), _launch.ptr(counts), _launch.ptr(tiles),
-                   B, n, V)
+                   _launch.ptr(overflow), _launch.ptr(tiles), B, n, V)
     return dense, overflow
 
 
@@ -132,11 +133,12 @@ def decode_l1_phases(bitmap: torch.Tensor, values: torch.Tensor, height: int, wi
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     tiles = torch.empty((B, _launch.num_tiles(n)), dtype=torch.int32, device=dev)
+    offsets = torch.empty_like(tiles)
     _launch.launch(PHASES_LAUNCHES, "pr_decode_l1_phases", dev,
                    _launch.ptr(bitmap), _launch.ptr(values), _launch.ptr(dense),
                    _launch.ptr(overflow), _launch.ptr(counts), _launch.ptr(tiles),
-                   B, n, V, PHASES.index(stop_after))
-    return {"store": (dense,), "count": (tiles,), "scan": (tiles, counts, overflow),
+                   _launch.ptr(offsets), B, n, V, PHASES.index(stop_after))
+    return {"store": (dense,), "count": (tiles,), "scan": (offsets, counts, overflow),
             "full": (dense, overflow)}[stop_after]
 
 

@@ -296,12 +296,11 @@ def assemble_split(tok: torch.Tensor, lut: torch.Tensor, phase: torch.Tensor,
     totbits = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     tile_bits = torch.empty((B, tiles), dtype=torch.int32, device=dev)
-    totals = torch.empty(B, dtype=torch.int32, device=dev)
     windows = torch.empty((B, tiles, int(_build.load().pr_split_window_words())),
                           dtype=torch.int32, device=dev)
     _launch.launch(ASSEMBLE_SPLIT_LAUNCHES, "pr_assemble_split", dev,
                    _launch.ptr(tok), int(tok.dtype == torch.int32), _launch.ptr(lut),
                    _launch.ptr(phase), _launch.ptr(partial), _launch.ptr(body),
                    _launch.ptr(totbits), _launch.ptr(overflow), _launch.ptr(tile_bits),
-                   _launch.ptr(totals), _launch.ptr(windows), B, ncols, out_rounded)
+                   _launch.ptr(windows), B, ncols, out_rounded)
     return body, totbits, overflow

@@ -3,12 +3,13 @@
 Port of tools/probe_decode_phases.py.  The TPU probe built truncated copies
 of its Pallas decode kernel that stop after each internal phase (bitmap /
 cumsum / offsets / fetch / level2 / full).  The port's phases are the
-passes of its own kernel, ``csrc/decode_l1.cu``, launched unchanged and cut
-after each (``hopper_decode.decode_l1_phases``):
+passes of its own kernel, ``csrc/decode_l1.cu``, cut after each
+(``hopper_decode.decode_l1_phases``):
 
-    store : the bitmap's 0/1 mask stored dense        (the HBM floor; TPU bitmap)
+    store : the expand pass storing the bitmap's 0/1 mask (the HBM floor; TPU bitmap)
     count : pass 1: set bits a tile                  (TPU cumsum)
-    scan  : + the tile scan: offsets, counts, overflow (TPU offsets)
+    scan  : + the expand pass's offsets step: tile offsets, counts,
+            overflow (TPU offsets; the decode has no scan pass of its own)
     full  : + the expand: every pixel stored, each foreground pixel's value
             gathered by its rank: the production decode_l1 (TPU fetch, level2, full)
 

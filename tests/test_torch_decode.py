@@ -48,6 +48,26 @@ def test_decode_matches_pallas(density):
     assert not ovf.any() and not np.asarray(jovf).any()
 
 
+@pytest.mark.parametrize("shape", [(40, 40), (37, 29)])
+def test_decode_ragged_rows_match_jax(shape):
+    """Three frames whose rows are off the kernel's 16-byte boundaries:
+    (40, 40) has bitmap rows of 200 bytes, held against the Pallas kernel in
+    interpret mode; (37, 29) has n % 8 != 0 as well, held against the JAX
+    XLA decode (the Pallas kernel reshapes each bitmap into whole-byte rows
+    of W / 8 and does not take W % 8 != 0)."""
+    bitmap, packed, expected = _encoded(0.3, shape=shape, seed=7)
+    values = bitunpack12(torch.from_numpy(packed))
+    dense, ovf = decode_l1(torch.from_numpy(bitmap), values, *shape)
+    if shape[1] % 8 == 0:
+        want, jovf = pallas_decode.decode_l1_pallas(bitmap, packed, *shape, 12, bucket=2,
+                                                    interpret=True)
+        assert not np.asarray(jovf).any()
+    else:
+        want = jax_decode_l1_frames(bitmap, packed, *shape, 12)
+    assert np.array_equal(dense.numpy(), np.asarray(want))
+    assert np.array_equal(dense.numpy(), expected) and not ovf.any()
+
+
 def test_plain_decode_matches_jax_xla():
     bitmap, packed, expected = _encoded(0.05, seed=3)
     got = decode_l1_frames(torch.from_numpy(bitmap), torch.from_numpy(packed), H, W, 12)

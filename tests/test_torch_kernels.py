@@ -20,8 +20,9 @@ from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tabl
 from pyrecode_tpu_torch.ops import (_launch, hopper_bitpack, hopper_decode, hopper_deflate,
                                     hopper_encode, hopper_gaps, hopper_label, hopper_probes,
                                     hopper_rans, hopper_tokens)
-from chip_smoke import (assemble_battery, hist_battery, label_edge_frames, label_tile_shapes,
-                        make_puddle_frames, posdecode_span_battery)
+from chip_smoke import (DECODE_SHAPES, assemble_battery, decode_battery, hist_battery,
+                        label_edge_frames, label_tile_shapes, make_puddle_frames,
+                        posdecode_span_battery)
 
 pytestmark = pytest.mark.gpu
 
@@ -476,13 +477,18 @@ def test_posdecode_span_battery_matches_twin(cuda):
             what
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
-def test_decode_l1_matches_twin(cuda, shape):
-    frames, thr = _frames(0.3, shape, seed=14)
-    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
-    bitmap, comp, _, _ = hopper_encode.encode_l1(f, t, shape[0] * shape[1])
-    for values in (comp, comp[:, :100].contiguous()):   # fits; overflows
+@pytest.mark.parametrize("case", ["30%", "edges"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_l1_matches_twin(cuda, shape, case):
+    """One launch a call; every pixel against the twin, the overflow flag at
+    V = the count, the count - 1 and 0."""
+    bitmap_np, values_list = decode_battery(np.random.default_rng(14), shape, case)
+    bitmap = torch.from_numpy(bitmap_np).to(cuda)
+    for values_np in values_list:
+        values = torch.from_numpy(values_np).to(cuda)
+        before = hopper_decode.LAUNCHES.value
         got = hopper_decode.decode_l1(bitmap, values, *shape)
+        assert hopper_decode.LAUNCHES.value == before + 1
         _equal(got, hopper_decode.decode_l1_plain(bitmap, values, *shape))
 
 
@@ -774,7 +780,35 @@ def test_tokens_from_pairs_edges_match_twin(cuda):
         assert torch.equal(got[4], hopper_tokens.adler_from_pairs(p, c, n))
 
 
-def test_assemble_split_matches_twin(cuda):
+@pytest.mark.parametrize("case", ["tokenized streams", *ASSEMBLE_CASES])
+def test_assemble_split_matches_twin(cuda, case):
+    """One launch a call.  "tokenized streams": the tokenizer's u16 and
+    compacted i32 tokens of _streams, the body at its bound and cut to 300
+    bytes, against the twin and assemble, then deflate_batch_device(
+    split_assemble=True) against native.deflate_sparse.  The edge battery's
+    cases (tiles of no tokens between tiles with bits, a word of three tiles,
+    phases 0..7 with partial bytes, odd ncols, streams of one token and of
+    none), u16 and i32, at out_bound ceil(total / 8) and one 128-byte step
+    under it: against the twin and assemble, and zeros past each total."""
+    if case != "tokenized streams":
+        _, tok, lut, phase, partial = next(
+            c for c in assemble_battery(np.random.default_rng(26)) if c[0] == case)
+        args = [torch.from_numpy(a).to(cuda) for a in (lut, phase, partial)]
+        i32 = torch.from_numpy(tok).to(cuda)
+        for t in (i32, _launch.i32_to_u16(i32)):
+            total = hopper_deflate.assemble_plain(t, *args, 0)[1]
+            exact = (int(total.max()) + 7) // 8
+            for out_bound in (exact, -(-exact // 128) * 128 - 128):
+                before = hopper_deflate.ASSEMBLE_SPLIT_LAUNCHES.value
+                got = hopper_deflate.assemble_split(t, *args, out_bound)
+                assert hopper_deflate.ASSEMBLE_SPLIT_LAUNCHES.value == before + 1
+                _equal(got, hopper_deflate.assemble_plain(t, *args, out_bound))
+                _equal(got, hopper_deflate.assemble(t, *args, out_bound))
+                assert torch.equal(got[1], total)
+                used = (total.cpu().numpy() + 7) // 8
+                body = got[0].cpu().numpy()
+                assert not any(body[b, used[b]:].any() for b in range(body.shape[0]))
+        return
     _, streams, lengths = _streams()
     s, n = torch.from_numpy(streams).to(cuda), torch.from_numpy(lengths).to(cuda)
     tok, hist, _ = hopper_deflate.tokenize(s, n)
@@ -814,13 +848,14 @@ def test_encode_l1_phases_match_twin(cuda, shape, phase, case):
             _equal(got[:1], full[:1])
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (37, 29)])
+@pytest.mark.parametrize("case", ["30%", "edges"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
 @pytest.mark.parametrize("phase", hopper_decode.PHASES)
-def test_decode_l1_phases_match_twin(cuda, shape, phase):
-    frames, thr = _frames(0.3, shape, seed=52)
-    f, t = torch.from_numpy(frames).to(cuda), torch.from_numpy(thr).to(cuda)
-    bitmap, comp, _, _ = hopper_encode.encode_l1(f, t, shape[0] * shape[1])
-    for values in (comp, comp[:, :100].contiguous()):   # fits; overflows
+def test_decode_l1_phases_match_twin(cuda, shape, phase, case):
+    bitmap_np, values_list = decode_battery(np.random.default_rng(52), shape, case)
+    bitmap = torch.from_numpy(bitmap_np).to(cuda)
+    for values_np in values_list:
+        values = torch.from_numpy(values_np).to(cuda)
         before = hopper_decode.PHASES_LAUNCHES.value
         got = hopper_decode.decode_l1_phases(bitmap, values, *shape, stop_after=phase)
         assert hopper_decode.PHASES_LAUNCHES.value == before + 1

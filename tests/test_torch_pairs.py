@@ -241,6 +241,16 @@ def test_pairs_route_matches_tokenize_compact():
 # ---------------------------------------------------------- #8 split assembly
 
 
+def _dyn_tables(hist):
+    """A stream's token LUT (48, 32), header phase and partial byte from its
+    tokenizer histogram, by the JAX package's native tables."""
+    lfreq = hist.astype(np.uint32)
+    lfreq[256] += 1
+    llen, lcode = jnative.dyn_tables(lfreq)
+    hb, hbits = jnative.dyn_header(llen)
+    return jdd.luts_as_radix(llen, lcode), hbits % 8, int(hb[-1]) if hbits % 8 else 0
+
+
 def _split_inputs():
     rng = np.random.default_rng(3)
     n = pdk.CH_A - 101
@@ -249,14 +259,9 @@ def _split_inputs():
     streams[0, :n] = raw
     lens = np.array([n], np.int32)
     tok, hist, _ = hopper_deflate.tokenize(torch.from_numpy(streams), torch.from_numpy(lens))
-    lfreq = hist[0, :286].numpy().astype(np.uint32)
-    lfreq[256] += 1
-    llen, lcode = jnative.dyn_tables(lfreq)
-    hb, hbits = jnative.dyn_header(llen)
-    luts = jdd.luts_as_radix(llen, lcode)[None]
-    phase = np.array([hbits % 8], np.int32)
-    partial = np.array([int(hb[-1]) if hbits % 8 else 0], np.int32)
-    return tok, luts, phase, partial, 2 * streams.shape[1] + 256
+    lut, phase, partial = _dyn_tables(hist[0, :286].numpy())
+    return (tok, lut[None], np.array([phase], np.int32), np.array([partial], np.int32),
+            2 * streams.shape[1] + 256)
 
 
 def test_assemble_split_matches_jax_and_assemble():
@@ -276,6 +281,30 @@ def test_assemble_split_matches_jax_and_assemble():
             for g, w in zip(hopper_deflate.assemble_split(t, *args, bound),
                             hopper_deflate.assemble(t, *args, bound)):
                 assert torch.equal(g, w)
+
+
+def test_assemble_split_empty_streams_match_jax():
+    """assemble_split against assemble_pallas_split(interpret=True) on three
+    streams of one CH_A batch: a sparse one, one of no tokens and one of a
+    single token, each with its own tables, phase and partial byte."""
+    rng = np.random.default_rng(5)
+    n = pdk.CH_A
+    streams = np.zeros((3, n), np.uint8)
+    streams[0, :n - 77] = rng.integers(0, 256, n - 77) * (rng.random(n - 77) < 0.05)
+    streams[2, 0] = 9
+    lens = np.array([n - 77, 0, 1], np.int32)
+    tok, hist, _ = hopper_deflate.tokenize(torch.from_numpy(streams), torch.from_numpy(lens))
+    assert (tok != 0).sum(dim=1).tolist()[1:] == [0, 1]
+    tables = [_dyn_tables(hist[b, :286].numpy()) for b in range(3)]
+    luts = np.stack([t[0] for t in tables])
+    phase, partial = (np.array([t[k] for t in tables], np.int32) for k in (1, 2))
+    out_bound = 2 * n + 256
+    want = pdk.assemble_pallas_split(tok.numpy(), luts, phase, partial, out_bound, interpret=True)
+    got = hopper_deflate.assemble_split(tok, *map(torch.from_numpy, (luts, phase, partial)),
+                                        out_bound)
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[1].tolist() == np.asarray(want[1]).tolist()
+    assert not got[2].any() and not np.asarray(want[2]).any()
 
 
 @pytest.mark.parametrize("hinted", [False, True])
