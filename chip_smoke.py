@@ -70,6 +70,24 @@ Phases (each raises on failure; nothing is caught):
    frames of phase 4 without and with run(profile_dir=) (equal part files,
    one Chrome trace) and the device busy share from that trace.
 
+11. the modules (run_modules), at 4096^2 uint16, 12-bit, on detector frames
+   made on the card from a seed (make_detector_frames): (a) 32 flat-field
+   frames written as SEQ (em_reader.write_seq) and calibrated by
+   ``python -m pyrecode_tpu_torch calibrate --use_acc`` in a subprocess,
+   every threshold file equal to utils.calibration.make_calibration_frames
+   on the host (device="cpu"), and pixel_median_std /
+   accurate_pixel_thresholds timed on the card beside their byte bounds;
+   (b) the CLI's ``server`` (batch, 2 thread nodes, L1, scheme 0, device
+   entropy, the accurate threshold file as --calibration_file,
+   --validation_frame_gap 4) on 16 SEQ frames, then ``merge`` and ``read``,
+   and the merged file read densely, bit-exact against oracle.reduce_frame
+   of each frame with that threshold, with every kernel of the path
+   launched; (c) ReCoDeServer("batch", isolation="process") with 2 worker
+   processes on 4 of the frames, its merged file byte-equal to a thread-mode
+   run on the card and no worker with CUDA initialised; (d) ReCoDeViewer
+   over (b)'s part files and verify_against_validation_frames on (b)'s
+   validation frames.
+
 Phase 6 also writes 8 of the frames as 8-bit values (clipped at 255) at
 scheme 12 with one writer and the card's default entropy: both streams on
 the device, every stream through the host rans.decompress, the read exact;
@@ -114,7 +132,10 @@ The last lines are the card, the per-kernel JSON object and the result:
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -128,7 +149,7 @@ import numpy as np
 import torch
 
 import pyrecode_tpu_torch as port
-from pyrecode_tpu_torch import native, oracle
+from pyrecode_tpu_torch import cli, native, oracle
 from pyrecode_tpu_torch.codecs import dyndeflate, rans
 from pyrecode_tpu_torch.codecs.dyndeflate import quantize_bound
 from pyrecode_tpu_torch.constants import rc_cfg as rc
@@ -141,6 +162,10 @@ from pyrecode_tpu_torch.profiling import cuda_event_time, trace
 from pyrecode_tpu_torch.tools import (probe_butterfly, probe_decode_phases, probe_f32dot,
                                       probe_mosaic, probe_phases)
 from pyrecode_tpu_torch.tools._common import HBM_BYTES_PER_S, max_abs_err, sparse_batch
+from pyrecode_tpu_torch.em_reader import write_seq
+from pyrecode_tpu_torch.utils import calibration
+from pyrecode_tpu_torch.utils.validate import verify_against_validation_frames
+from pyrecode_tpu_torch.utils.viewer import ReCoDeViewer
 from pyrecode_tpu_torch.writer import _bucket_for
 
 REPO = Path(__file__).resolve().parent
@@ -221,6 +246,13 @@ TOOL_KERNELS = ("encode_l1_phases", "decode_l1_phases", "probe_mosaic", "probe_f
 MD_WORLD = 2              # phase 8 (b): gloo ranks, each on the one card
 RANK_TIMEOUT_S = 300.0    # phase 8 (b): a rank that runs longer fails the script
 ALT_BATCH = 4             # phase 9: frames a batch
+CAL_FRAMES = 32           # phase 11 (a): flat-field frames
+ACQ_FRAMES = 16           # phase 11 (b): acquisition frames
+PROC_FRAMES = 4           # phase 11 (c): frames of the process-isolation run
+VALIDATION_GAP = 4        # phase 11 (b): every 4th raw frame is archived
+# the kernels of phase 11 (b): the CLI's server (one of the two tokenizers at
+# least) and the dense read
+MODULES_KERNELS = ("encode_l1", "bitpack12", "assemble", "bitunpack12", "decode_l1")
 # (level, L2 statistic or L4 scheme, compression scheme) -> the kernels of that slice
 LEVEL_SLICES = {
     (2, "sum", 12): ("label_l2l4", "bitpack12", "bitmap_positions", "rans_hist", "rans_encode",
@@ -2187,6 +2219,199 @@ def trace_writer(device, data, dark, work_dir: Path) -> dict:
     return result
 
 
+def make_detector_frames(device, n_flat: int, n_acq: int, height: int, width: int):
+    """Flat-field and acquisition frames of one detector, made on ``device``
+    from SEED: a per-pixel dark level in 100..131, Gaussian read noise (sigma
+    3, rounded) and single-pixel electron hits of 20..79 counts, at 0.08 a
+    pixel and frame in the flat field (the accurate thresholds need more than
+    one event a pixel over the stack) and 0.01 in the acquisition.  Returns
+    (flat (n_flat, h, w), acquisition (n_acq, h, w)) uint16 numpy arrays."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    level = 100 + torch.randint(0, 32, (height, width), generator=gen, device=device)
+
+    def frames(n, dose):
+        out = np.empty((n, height, width), np.uint16)
+        for i in range(n):
+            noise = torch.randn((height, width), generator=gen, device=device) * 3
+            hits = torch.rand((height, width), generator=gen, device=device) < dose
+            counts = torch.randint(20, 80, (height, width), generator=gen, device=device)
+            frame = level + noise.round().to(torch.int64) + hits * counts
+            out[i] = frame.clamp(0, 4095).to(torch.int32).cpu().numpy()
+        return out
+
+    return frames(n_flat, 0.08), frames(n_acq, 0.01)
+
+
+def _modules_params(path: Path, n_frames: int, height: int, width: int) -> dict:
+    """Phase 11's L1 scheme-0 parameters (a SEQ source, epsilon 0: the
+    threshold is the calibration file), written to ``path``; returns them."""
+    values = dict(
+        reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=0,
+        target_bit_depth=12, source_bit_depth=12, num_cols=width, num_rows=height,
+        num_frames=n_frames, frame_offset=0, num_calibration_frames=1,
+        calibration_frame_offset=0, keep_part_files=1, num_threads=2, l2_statistics=0,
+        l4_centroiding=0, compression_scheme=0, compression_level=1,
+        source_file_type=rc.FILE_TYPE_SEQ, source_header_length=1024, keep_calibration_data=1,
+        calibration_file_type=rc.FILE_TYPE_BINARY, source_data_type=0, target_data_type=0)
+    path.write_text("".join(f"{k} = {v}\n" for k, v in values.items()))
+    return values
+
+
+def run_modules(device, gpu: str, work_dir: Path, size: int = 4096) -> dict:
+    """Phase 11: calibrate -> server -> merge -> read through the CLI, process
+    isolation and the viewer and validation frames (see the module
+    docstring).  Returns the launch counts of (b), the times and the walls."""
+    flat, acq = make_detector_frames(device, CAL_FRAMES, ACQ_FRAMES, size, size)
+    dev = device.type
+    result = {"walls": {}}
+
+    # (a) calibration: the CLI in a subprocess, held against the host path
+    cal_dir = work_dir / "calibration"
+    cal_dir.mkdir()
+    write_seq(cal_dir / "flat.seq", flat)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pyrecode_tpu_torch", "calibrate",
+                          "--flatfield_filepath", str(cal_dir / "flat.seq"),
+                          "--n_frames", str(CAL_FRAMES), "--savepath", str(cal_dir),
+                          "--save_prefix", "cal", "--use_acc", "--device", dev],
+                         capture_output=True, text=True, timeout=900, cwd=str(REPO),
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    result["walls"]["calibrate_cli_s"] = time.perf_counter() - t0
+    expect(out.returncode == 0, f"phase 11: calibrate failed:\n{out.stderr[-4000:]}")
+    print("calibrate: " + " | ".join(out.stdout.strip().splitlines()))
+    t0 = time.perf_counter()
+    ref = calibration.make_calibration_frames(None, np.uint16, CAL_FRAMES, 10, 4, frames=flat,
+                                              use_acc=True, sigma_acc=3, verbose=False,
+                                              device="cpu")
+    result["walls"]["calibrate_host_s"] = time.perf_counter() - t0
+    expect(set(ref["thresholds"]) == {0, 1, 2, 3, "3A"},
+           f"phase 11: thresholds {sorted(map(str, ref['thresholds']))}, no accurate ones")
+    for key, want in ref["thresholds"].items():
+        got = np.fromfile(cal_dir / f"cal__dark_ref_{key}.bin", np.uint16).reshape(size, size)
+        expect(np.array_equal(got, want.astype(np.uint16)),
+               f"phase 11: threshold file {key} differs from the host calibration")
+    k = int(np.ceil(CAL_FRAMES * ref["statistics"][3]["avg_dose_rate"]))
+    stack = torch.from_numpy(flat).to(device)
+    med, std = calibration.pixel_median_std(stack, device)
+    expect(np.array_equal(med, ref["median"]), "phase 11: the card's median differs")
+    expect(np.allclose(std, ref["std"], rtol=1e-5, atol=0), "phase 11: the card's std differs")
+    base = torch.from_numpy(ref["median"]).to(device)
+    acc = calibration.accurate_pixel_thresholds(stack, base, k, device)
+    expect(np.array_equal(acc, ref["thresholds"]["3A"]),
+           "phase 11: the card's accurate thresholds differ")
+    print(f"calibration: {CAL_FRAMES} x {size}^2 flat field, sigma {ref['sigma']!r}, accurate "
+          f"thresholds at k = {k}; every threshold file of the CLI equal to the host path's")
+    if dev == "cuda":
+        stack_bytes = stack.numel() * stack.element_size()
+        plane = size * size * 4
+        for name, fn, nbytes in (
+                ("pixel_median_std", lambda: calibration.pixel_median_std(stack, device),
+                 stack_bytes + 2 * plane),
+                ("accurate_pixel_thresholds",
+                 lambda: calibration.accurate_pixel_thresholds(stack, base, k, device),
+                 stack_bytes + 2 * plane)):
+            ms = cuda_event_time(fn, 5, 3)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            result[name] = {"ms": ms, "bound_ms": bound, "bytes": nbytes}
+            print(f"{name} ({CAL_FRAMES} x {size}^2 u16 on the card, results to the host): "
+                  f"{ms:.3f} ms, byte bound {bound:.4f} ms ({nbytes} bytes over "
+                  f"{HBM_BYTES_PER_S / 1e12} TB/s) [{gpu}]")
+    del stack, base
+
+    # (b) acquisition: server -> merge -> read through the CLI, then a dense read
+    acq_dir = work_dir / "acquisition"
+    acq_dir.mkdir()
+    src = acq_dir / "acq.seq"
+    write_seq(src, acq)
+    thr_file = cal_dir / "cal__dark_ref_3A.bin"
+    thr = np.fromfile(thr_file, np.uint16).reshape(size, size)
+    values = _modules_params(acq_dir / "params.txt", ACQ_FRAMES, size, size)
+    port.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    expect(cli.main(["server", "--image_filename", str(src), "--calibration_file", str(thr_file),
+                     "--out_dir", str(acq_dir), "--params_file", str(acq_dir / "params.txt"),
+                     "--log_file", str(acq_dir / "recode.log"), "--run_name", "chip_smoke",
+                     "--validation_frame_gap", str(VALIDATION_GAP), "--device", dev]) == 0,
+           "phase 11: the CLI's server failed")
+    expect(cli.main(["merge", "--folder", str(acq_dir), "--base", "acq.rc1",
+                     "--num_parts", "2"]) == 0, "phase 11: the CLI's merge failed")
+    result["walls"]["server_merge_s"] = time.perf_counter() - t0
+    merged = acq_dir / "acq.rc1"
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):   # the header's fields, then the frame's line
+        expect(cli.main(["read", "--file", str(merged), "--frame", "5", "--device", dev]) == 0,
+               "phase 11: the CLI's read failed")
+    print(f"read: {printed.getvalue().strip().splitlines()[-1]}")
+    reader = port.ReCoDeReader(str(merged), device=device)
+    reader.open()
+    t0 = time.perf_counter()
+    dense = reader.read_frames_dense(0, ACQ_FRAMES)
+    result["walls"]["read_dense_s"] = time.perf_counter() - t0
+    reader.close()
+    result["launches"] = port.kernel_launch_counts()
+    expected = np.zeros_like(acq)
+    for z in range(ACQ_FRAMES):
+        enc = oracle.reduce_frame(acq[z], thr, 1, 12)
+        rows, cols, vals = oracle.decode_frame_sparse(enc["packed_binary_map"],
+                                                      enc["packed_pixvals"], size, size, 12, 1)
+        expected[z][rows.astype(np.int64), cols.astype(np.int64)] = vals
+        expect(np.array_equal(dense[z], expected[z]),
+               f"phase 11: frame {z} differs from oracle.reduce_frame")
+    print(f"acquisition: {ACQ_FRAMES} x {size}^2 through the CLI's server, merge and read; "
+          f"merged {merged.stat().st_size} bytes, read_frames_dense bit-exact against "
+          f"oracle.reduce_frame ({int((expected > 0).sum())} foreground pixels)")
+
+    # (c) process isolation against the thread mode on the card
+    iso_values = dict(values, num_frames=PROC_FRAMES)
+    merged_by_mode = {}
+    for isolation in ("process", "thread"):
+        out_dir = work_dir / f"isolation_{isolation}"
+        out_dir.mkdir()
+        server = port.ReCoDeServer("batch", isolation=isolation, device=device)
+        t0 = time.perf_counter()
+        metrics = server.run(port.InitParams("batch", str(out_dir), image_filename=str(src),
+                                             calibration_filename=str(thr_file),
+                                             log_filename=str(out_dir / "recode.log"),
+                                             run_name="chip_smoke"),
+                             input_params=port.InputParams(iso_values))
+        path = port.merge_parts(str(out_dir), "acq.rc1", 2)
+        result["walls"][f"{isolation}_isolation_s"] = time.perf_counter() - t0
+        statuses = [node.status for node in server._nodes]
+        expect(statuses == [rc.STATUS_CODE_IS_CLOSED] * 2,
+               f"phase 11: {isolation} nodes ended as {statuses}")
+        if isolation == "process":
+            pids = [node.pid for node in server._nodes]
+            initialised = [m.get("cuda_initialized") for m in metrics.values()]
+            expect(initialised == [False, False],
+                   f"phase 11: worker processes report CUDA initialised {initialised}")
+            print(f"process isolation: worker pids {pids}, CUDA initialised in none")
+        merged_by_mode[isolation] = Path(path).read_bytes()
+    expect(merged_by_mode["process"] == merged_by_mode["thread"],
+           "phase 11: the process-isolated container differs from the thread mode's")
+    print(f"process isolation: {PROC_FRAMES} frames, merged container byte-equal to the "
+          f"thread mode's on {dev} ({len(merged_by_mode['thread'])} bytes)")
+
+    # (d) the live viewer over (b)'s part files and its validation frames
+    viewer = ReCoDeViewer(str(acq_dir), "acq.rc1", 2, fractionation=4, device=device)
+    for start in range(0, ACQ_FRAMES, 4):
+        view = viewer.get_next_view()
+        expect(view["start"] == start and view["n_frames"] == 4,
+               f"phase 11: viewer window {view['start']}+{view['n_frames']}")
+        expect(np.array_equal(view["view"], expected[start:start + 4].sum(axis=0)),
+               f"phase 11: viewer window at {start} differs")
+    viewer.close()
+    for node, offset in ((0, 0), (1, ACQ_FRAMES // 2)):
+        report = verify_against_validation_frames(
+            str(merged), str(acq_dir / f"acq_part{node:03d}_validation_frames.bin"),
+            VALIDATION_GAP, dark=thr, frame_offset=offset, device=device)
+        want = set(range(offset, offset + ACQ_FRAMES // 2, VALIDATION_GAP))
+        expect(report["all_match"] and set(report["frames"]) == want,
+               f"phase 11: validation frames of node {node}: {report}")
+    print(f"viewer: {ACQ_FRAMES // 4} views of 4 frames equal to the residual sums; "
+          f"validation frames of both nodes match")
+    return result
+
+
 def host_ms(fn, reps: int = 20) -> float:
     """Host milliseconds of one call of ``fn``: ``reps`` calls queued back to
     back after a synchronize, timed without waiting for the device (too few
@@ -2446,6 +2671,16 @@ def main() -> None:
             raise AssertionError(f"kernels not launched by the tools: {missing}")
         kernel_stats.update(tools["stats"])
         traced = trace_writer(device, data, dark, work_dir)
+
+        print("modules:")
+        modules = run_modules(device, gpu, work_dir)
+        launches["modules"] = modules["launches"]
+        print(f"launches in the modules' path (CLI server and read): {modules['launches']}")
+        missing = [name for name in MODULES_KERNELS if modules["launches"][name] == 0]
+        if not (modules["launches"]["tokenize"] or modules["launches"]["tokenize_compact"]):
+            missing.append("tokenize or tokenize_compact")
+        if missing:
+            raise AssertionError(f"kernels not launched by the modules' path: {missing}")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     raw = data.nbytes
@@ -2468,6 +2703,8 @@ def main() -> None:
           f"untraced: {traced['untraced_s']:.3f} s), {traced['busy_share_span']:.4f} of the "
           f"trace's own span {traced['span_ms']:.3f} ms; device intervals "
           f"{traced['busy_ms']:.3f} ms [{gpu}]")
+    print("modules (phase 11): " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                             modules["walls"].items()) + f" [{gpu}]")
     for what, seconds in (("L1 scheme 0", entropy_s), ("L4 weighted_average scheme 0",
                                                        entropy_l4)):
         for device_entropy, name in ((True, "device"), (False, "host")):

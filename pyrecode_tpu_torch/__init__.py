@@ -35,18 +35,30 @@ device by default (``device_entropy``), as the JAX writer does on a TPU.
 
 from .ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode, hopper_gaps,
                   hopper_label, hopper_probes, hopper_rans, hopper_tokens)
+from .constants import get_dtype_code, get_dtype_string, map_dtype, rc_cfg
+from .header import ReCoDeHeader
 from .params import InitParams, InputParams
 from .reader import ReCoDeReader, merge_parts
 from .server import ReCoDeServer
+from .structures import ReCoDeStructures
 from .writer import ReCoDeWriter
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "rc_cfg",
+    "map_dtype",
+    "get_dtype_code",
+    "get_dtype_string",
     "InitParams",
     "InputParams",
+    "ReCoDeHeader",
+    "ReCoDeStructures",
     "ReCoDeWriter",
     "ReCoDeReader",
     "ReCoDeServer",
     "merge_parts",
+    "__version__",
     "kernel_launch_counts",
     "reset_kernel_launch_counts",
 ]

@@ -94,8 +94,16 @@ _SCHEME_LIBS = {
 _BLOSC_CNAMES = {6: "zlib", 7: "zstd", 8: "lz4", 9: "snappy", 10: "blosclz", 11: "lz4hc"}
 
 
+def scheme_name(scheme: int) -> str:
+    return _SCHEME_NAMES[int(scheme)]
+
+
 def is_available(scheme: int) -> bool:
     return _availability.get(_SCHEME_LIBS[int(scheme)], False)
+
+
+def available_schemes() -> list:
+    return [code for code in range(13) if is_available(code)]
 
 
 @dataclass
@@ -180,6 +188,27 @@ def get_codec(scheme: int, level: int = 1) -> Codec:
     raise NotImplementedError(f"compression scheme {scheme} not implemented")
 
 
+# ----------------------------------------------------------------------------
+# Reference-compatible functional API (recode_compressors.py:40-129)
+# ----------------------------------------------------------------------------
+
+def compress(compression_scheme: int, compression_level: int, data, compressor_context=None) -> bytes:
+    """Compress one blob; signature-compatible with the reference."""
+    if compression_scheme == 1 and compressor_context is not None:
+        return compressor_context.compress(bytes(data))
+    return get_codec(compression_scheme, compression_level).compress(bytes(data))
+
+
+def de_compress(compression_scheme: int, compressed_data, decompressor_context=None) -> bytes:
+    """Decompress one blob; signature-compatible with the reference."""
+    if compression_scheme == 1 and decompressor_context is not None and hasattr(decompressor_context, "decompress"):
+        try:
+            return decompressor_context.decompress(compressed_data, max_output_size=1 << 31)
+        except TypeError:
+            return decompressor_context.decompress(compressed_data)
+    return get_codec(compression_scheme).decompress(bytes(compressed_data))
+
+
 def import_checks(header: dict) -> bool:
     """Raise ImportError if the scheme recorded in a header is unavailable."""
     scheme = int(header["compression_scheme"])
@@ -193,3 +222,15 @@ def import_checks(header: dict) -> bool:
     )
     raise ImportError(_SCHEME_LIBS[scheme])
 
+
+def make_compressor_context(scheme: int, level: int) -> Optional[object]:
+    """Reusable compressor context for schemes that benefit from one (zstd)."""
+    if int(scheme) == 1 and _zstd is not None:
+        return _zstd.ZstdCompressor(level=level, write_content_size=False)
+    return None
+
+
+def make_decompressor_context(scheme: int) -> Optional[object]:
+    if int(scheme) == 1 and _zstd is not None:
+        return _zstd.ZstdDecompressor()
+    return None

@@ -73,3 +73,33 @@ def map_dtype(data_type: int, bit_depth: int):
         f"Unable to match a numpy dtype for type = {data_type} "
         f"(0=unsigned int, 1=signed int, 2=float) with bit depth = {bit_depth}"
     )
+
+
+_DTYPE_CODES = {
+    np.uint8: 0, np.uint16: 1, np.uint32: 2, np.uint64: 3,
+    np.int8: 4, np.int16: 5, np.int32: 6, np.int64: 7,
+    np.float32: 8, np.float64: 9,
+}
+
+_DTYPE_STRINGS = {
+    0: "uint8", 1: "uint16", 2: "uint32", 3: "uint64",
+    4: "int8", 5: "int16", 6: "int32", 7: "int64",
+    8: "float32", 9: "float64",
+}
+
+
+def get_dtype_code(dtype) -> int:
+    """Numpy dtype (class or instance) -> header dtype code."""
+    key = np.dtype(dtype).type
+    try:
+        return _DTYPE_CODES[key]
+    except KeyError:
+        raise ValueError(f"Unknown dtype: {dtype!r}") from None
+
+
+def get_dtype_string(code) -> str:
+    """Header dtype code -> numpy dtype name."""
+    try:
+        return _DTYPE_STRINGS[int(code)]
+    except (KeyError, TypeError):
+        raise ValueError(f"Unknown dtype code: {code!r}") from None

@@ -137,6 +137,60 @@ def emfile(file, file_type=None, mode="r", buffering=-1):
     raise ValueError(f"Source type {file_type!r} is not supported.")
 
 
+def write_mrc(path, data: np.ndarray) -> None:
+    """Write a minimal MRC2014 stack (validation/fixture tooling).
+
+    Not in the reference (it only reads); used by tests and by stream-mode
+    examples to synthesize detector files the native parser reads back.
+    """
+    data = np.ascontiguousarray(data)
+    if data.ndim == 2:
+        data = data[np.newaxis]
+    mode = {np.dtype(np.int8): 0, np.dtype(np.int16): 1,
+            np.dtype(np.float32): 2, np.dtype(np.uint16): 6,
+            np.dtype(np.float16): 12}[data.dtype]
+    nz, ny, nx = data.shape
+    header = bytearray(1024)
+    struct.pack_into("<4i", header, 0, nx, ny, nz, mode)
+    struct.pack_into("<3i", header, 28, nx, ny, nz)      # mx, my, mz
+    struct.pack_into("<i", header, 92, 0)                # nsymbt
+    struct.pack_into("<i", header, 108, 20140)           # nversion
+    header[208:212] = b"MAP "
+    header[212:216] = bytes((0x44, 0x44, 0x00, 0x00))    # little-endian stamp
+    with open(path, "wb") as fp:
+        fp.write(bytes(header))
+        fp.write(data.tobytes())
+
+
+def write_seq(path, data: np.ndarray, timestamp_pad: int = 8) -> None:
+    """Write a minimal StreamPix v5 sequence (validation/fixture tooling)."""
+    data = np.ascontiguousarray(data)
+    if data.ndim == 2:
+        data = data[np.newaxis]
+    bit_depth = data.dtype.itemsize * 8
+    nz, ny, nx = data.shape
+    image_size = ny * nx * data.dtype.itemsize
+    true_size = image_size + timestamp_pad
+    header = bytearray(SEQ_HEADER_SIZE)
+    struct.pack_into("<I", header, 0, _SEQ_MAGIC)
+    header[4:15] = b"Norpix seq\x00"
+    struct.pack_into("<i", header, 28, 5)                # version
+    struct.pack_into("<i", header, 32, SEQ_HEADER_SIZE)  # header size
+    struct.pack_into("<I", header, 548, nx)
+    struct.pack_into("<I", header, 552, ny)
+    struct.pack_into("<I", header, 556, bit_depth)
+    struct.pack_into("<I", header, 560, bit_depth)
+    struct.pack_into("<I", header, 564, image_size)
+    struct.pack_into("<I", header, 568, 100)             # monochrome
+    struct.pack_into("<I", header, 572, nz)              # allocated frames
+    struct.pack_into("<I", header, 580, true_size)
+    with open(path, "wb") as fp:
+        fp.write(bytes(header))
+        for i in range(nz):
+            fp.write(data[i].tobytes())
+            fp.write(bytes(timestamp_pad))
+
+
 class EMReaderBase:
     """Base class: header/shape/dtype properties, iteration, numpy-style
     slicing returning frame stacks."""

@@ -348,6 +348,10 @@ class ReCoDeHeader:
             return offset
         return int(offset + int(self._values["nz"]) * sz_frame_metadata)
 
+    def skip_header(self, rc_fp: BinaryIO) -> BinaryIO:
+        rc_fp.seek(self.recode_header_length)
+        return rc_fp
+
     # -------------------------------------------------------------- properties
 
     @property

@@ -9,8 +9,13 @@ of the source and the flags, and never loads the JAX package's library.
 The card does reduction, packing and entropy coding; these C++ loops serve
 the host side: the sparse random-access decode of the reader, the host
 entropy coders (scheme-0 sparse deflate, scheme-12 rANS) and the per-stream
-deflate tables of the device entropy stage.  Everything degrades to the
-numpy oracle where there is one when no compiler is available.
+deflate tables of the device entropy stage (``entropy_host_tables``, or
+``dyn_tables``, ``dyn_header`` and ``token_luts_radix`` one at a time);
+``bit_pack``, ``bit_unpack`` and ``pack_mask`` serve host packing, and a
+``Reader`` shim mirrors the reference's ``c_recode.Reader``
+(``create_buffers``, ``get_frame_sparse``, ``bit_pack_pixel_intensities``,
+``bit_unpack_pixel_intensities``).  Everything degrades to the numpy oracle where there is one when no compiler
+is available.
 """
 
 from __future__ import annotations
@@ -72,6 +77,19 @@ def get_lib() -> Optional[ctypes.CDLL]:
         i64p = ctypes.POINTER(ctypes.c_int64)
         u64p = ctypes.POINTER(ctypes.c_uint64)
         f32p = ctypes.POINTER(ctypes.c_float)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        lib.bit_pack_u16.restype = None
+        lib.bit_pack_u16.argtypes = [u16p, ctypes.c_uint64, ctypes.c_uint8, u8p]
+        lib.bit_unpack_u64.restype = None
+        lib.bit_unpack_u64.argtypes = [u8p, ctypes.c_uint64, ctypes.c_uint8, u8p]
+        lib.pack_mask.restype = None
+        lib.pack_mask.argtypes = [u8p, ctypes.c_uint64, u8p]
+        lib.dyn_tables.restype = None
+        lib.dyn_tables.argtypes = [u32p, u8p, u16p]
+        lib.dyn_header.restype = ctypes.c_int64
+        lib.dyn_header.argtypes = [u8p, u8p]
+        lib.token_luts_radix.restype = None
+        lib.token_luts_radix.argtypes = [u8p, u16p, f32p]
         lib.unpack_frame_sparse.restype = ctypes.c_int64
         lib.unpack_frame_sparse.argtypes = [
             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint8, u8p, u8p, u64p,
@@ -152,6 +170,41 @@ def unpack_frame_sparse(bitmap: bytes, pixvals: Optional[bytes], ny: int, nx: in
     return trip[:, 0].copy(), trip[:, 1].copy(), trip[:, 2].copy()
 
 
+def bit_pack(values: np.ndarray, bit_depth: int) -> np.ndarray:
+    """Native b-bit LSB-first packing; falls back to the oracle.
+
+    The C kernel reads u16 inputs, so depths above 16 bits go to the oracle.
+    """
+    lib = get_lib()
+    if lib is None or bit_depth > 16:
+        from . import oracle
+
+        return oracle.bit_pack(values, bit_depth)
+    vals = np.ascontiguousarray(values, dtype=np.uint16)
+    n_out = -(-vals.size * bit_depth // 8)
+    out = np.zeros(n_out + 8, dtype=np.uint8)
+    lib.bit_pack_u16(vals.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                     ctypes.c_uint64(vals.size), ctypes.c_uint8(bit_depth),
+                     _u8ptr(out))
+    return out[:n_out]
+
+
+def bit_unpack(packed: bytes, bit_depth: int, n_values: int, dtype=np.uint64) -> np.ndarray:
+    """Native b-bit unpack; falls back to the oracle (always for depth > 16,
+    where the C unaligned-64-bit-window extraction would go wrong past 57
+    bits and asymmetry with the u16-only packer serves no one)."""
+    lib = get_lib()
+    if lib is None or bit_depth > 16:
+        from . import oracle
+
+        return oracle.bit_unpack(packed, bit_depth, n_values, dtype=dtype)
+    src = _padded_u8(bytes(packed))
+    out = np.empty(n_values, dtype=np.uint64)
+    lib.bit_unpack_u64(_u8ptr(src), ctypes.c_uint64(n_values),
+                       ctypes.c_uint8(bit_depth), _u8ptr(out.view(np.uint8)))
+    return out.astype(dtype)
+
+
 def label_components(mask: np.ndarray) -> Tuple[np.ndarray, int]:
     """Native 8-connected component labeling, labels in row-major
     first-encounter order; falls back to the scipy-based oracle."""
@@ -167,6 +220,19 @@ def label_components(mask: np.ndarray) -> Tuple[np.ndarray, int]:
         _u8ptr(m), ctypes.c_uint32(ny), ctypes.c_uint32(nx),
         labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     return labels, int(n)
+
+
+def pack_mask(mask: np.ndarray) -> np.ndarray:
+    """Native binary-map packing; falls back to the oracle."""
+    lib = get_lib()
+    if lib is None:
+        from . import oracle
+
+        return oracle.pack_binary_frame(mask)
+    flat = np.ascontiguousarray(mask, dtype=np.uint8).reshape(-1)
+    out = np.zeros((flat.size + 7) // 8, dtype=np.uint8)
+    lib.pack_mask(_u8ptr(flat), ctypes.c_uint64(flat.size), _u8ptr(out))
+    return out
 
 
 def deflate_sparse(data) -> bytes:
@@ -297,6 +363,64 @@ def rans_reconstruct(syms: np.ndarray, xbits: bytes, n: int
     return out[: int(n)].tobytes()
 
 
+def dyn_tables(lfreq: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Canonical dynamic-Huffman tables from 286 literal/length frequencies.
+
+    Exactly the construction used by :func:`deflate_sparse` dynamic mode
+    (heap tie-breaking included), so streams assembled from these tables are
+    byte-identical to ``deflate_sparse_dyn`` output.  Returns (llen u8[286],
+    lcode u16[286]).
+    """
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    freq = np.ascontiguousarray(lfreq, dtype=np.uint32)
+    assert freq.size == 286
+    llen = np.zeros(286, dtype=np.uint8)
+    lcode = np.zeros(286, dtype=np.uint16)
+    lib.dyn_tables(freq.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                   _u8ptr(llen),
+                   lcode.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+    return llen, lcode
+
+
+def dyn_header(llen: np.ndarray) -> Tuple[np.ndarray, int]:
+    """zlib header + dynamic block header bits for literal/length lengths.
+
+    Returns (bytes u8[ceil(bits/8)], bit_length); the final byte is partial
+    (zero-padded) unless bit_length % 8 == 0.
+    """
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    lens = np.ascontiguousarray(llen, dtype=np.uint8)
+    out = np.zeros(512, dtype=np.uint8)
+    bits = int(lib.dyn_header(_u8ptr(lens), _u8ptr(out)))
+    return out[: (bits + 7) // 8], bits
+
+
+def token_luts_radix(llen: np.ndarray, lcode: np.ndarray
+                     ) -> Optional[np.ndarray]:
+    """Token (value, bit-count) LUT in the assembly kernel's radix layout.
+
+    Returns a (48, 32) f32 LUT — rows 0..23 full token values
+    (exact in f32, <= 21 bits), rows 24..47 bit counts, both laid out
+    [idx >> 5, idx & 31] — or None when the native library is unavailable.
+    ``entropy_host_tables`` computes it with the two tables in one call.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    lens = np.ascontiguousarray(llen, dtype=np.uint8)
+    codes = np.ascontiguousarray(lcode, dtype=np.uint16)
+    lut = np.zeros((48, 32), dtype=np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.token_luts_radix(_u8ptr(lens),
+                         codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                         lut.ctypes.data_as(f32p))
+    return lut
+
+
 def entropy_host_tables(lfreq_body: np.ndarray, lut_out: np.ndarray
                         ) -> Optional[Tuple[np.ndarray, int, int, int, int]]:
     """The per-stream host step of the device deflate in one call.
@@ -324,3 +448,40 @@ def entropy_host_tables(lfreq_body: np.ndarray, lut_out: np.ndarray
     bits = int(info[0])
     return (hdr[: (bits + 7) // 8], bits, int(info[1]), int(info[2]),
             int(info[3]))
+
+
+class Reader:
+    """API shim mirroring the reference ``c_recode.Reader``
+    (pyrecode.cpp:57-149)."""
+
+    def __init__(self):
+        self._ny = self._nx = self._bit_depth = 0
+
+    def create_buffers(self, ny: int, nx: int, bit_depth: int) -> None:
+        self._ny, self._nx, self._bit_depth = int(ny), int(nx), int(bit_depth)
+
+    def get_frame_sparse(self, reduction_level, binary_map, pixvals, frame_buffer) -> int:
+        rows, cols, vals = unpack_frame_sparse(
+            bytes(binary_map), bytes(pixvals) if pixvals is not None else None,
+            self._ny, self._nx, self._bit_depth, int(reduction_level))
+        n = rows.size
+        triplets = np.empty((n, 3), dtype=np.uint64)
+        triplets[:, 0] = rows
+        triplets[:, 1] = cols
+        triplets[:, 2] = vals
+        view = np.frombuffer(frame_buffer, dtype=np.uint64)
+        view[: n * 3] = triplets.reshape(-1)
+        return n
+
+    def bit_pack_pixel_intensities(self, sz_packed, n_fg, bit_depth, pixvals, packed) -> float:
+        vals = np.frombuffer(pixvals, dtype=np.uint16, count=int(n_fg))
+        out = bit_pack(vals, int(bit_depth))
+        view = np.frombuffer(packed, dtype=np.uint8)
+        view[: out.size] = out
+        return 0.0
+
+    def bit_unpack_pixel_intensities(self, n_values, packed, buffer) -> float:
+        out = bit_unpack(bytes(packed), self._bit_depth, int(n_values))
+        view = np.frombuffer(buffer, dtype=np.uint64)
+        view[: out.size] = out
+        return 0.0

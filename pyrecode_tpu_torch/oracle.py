@@ -322,3 +322,34 @@ def decode_summary_stats(packed: bytes, bit_depth: int, n_values: int, dtype=np.
         return bit_unpack(packed, bit_depth, n_values, dtype=dtype)
     itemsize = np.dtype(dtype).itemsize
     return np.frombuffer(packed[: n_values * itemsize], dtype=dtype).copy()
+
+
+# ---------------------------------------------------------------------------
+# synthetic fixtures
+# ---------------------------------------------------------------------------
+
+def synthetic_frames(n: int, height: int, width: int, occupancy: float = 0.01,
+                     bit_depth: int = 12, distribution: str = "peaked",
+                     scale: float = 6.0, rng=None) -> np.ndarray:
+    """Synthetic post-threshold detector frames (residuals on a zero dark).
+
+    ``distribution="peaked"`` draws foreground residuals from
+    ``min(1 + floor(Exp(scale)), 2^bit_depth - 1)`` — the single-electron
+    regime the codec is built for (Datta et al. 2021: sparse puddles whose
+    dark-subtracted intensities decay fast from small values), which is what
+    makes the pixel-value stream entropy-codable.  ``"uniform"`` draws
+    uniformly over the full bit range (incompressible pixvals; stresses the
+    stored-block path).  Returns (n, height, width) uint16.
+    """
+    rng = np.random.default_rng(rng)
+    shape = (n, height, width)
+    mask = rng.random(shape) < occupancy
+    top = (1 << bit_depth) - 1
+    if distribution == "peaked":
+        vals = 1 + np.floor(rng.exponential(scale, shape)).astype(np.int64)
+        vals = np.minimum(vals, top)
+    elif distribution == "uniform":
+        vals = rng.integers(1, top + 1, shape)
+    else:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    return np.where(mask, vals, 0).astype(np.uint16)

@@ -6,13 +6,16 @@ the reference server's protocol (recode_server.py:54-773): ``run`` drives N
 sequence start -> process_file* -> close, with the status lifecycle
 NOT_READY -> AVAILABLE -> BUSY -> ... -> IS_CLOSED, reliable broadcast with
 retries, replacement of failed nodes, and a stream mode that watches a
-directory for chunk files.  Nodes are threads that share the one card and
-launch from their own threads; each owns the port's writer and its part
-file.  The ZMQ sockets of the reference become in-process queues carrying
-the same ``MessageData`` envelopes.
+directory for chunk files.  Each node owns the port's writer and its part
+file.  The ZMQ sockets of the reference become queues carrying the same
+``MessageData`` envelopes.
 
-``isolation="process"`` is not ported yet: its workers must keep CUDA
-uninitialised (ROADMAP Queue 1).
+``isolation="thread"`` (the default) runs the nodes as threads that share
+the one card and launch from their own threads.  ``isolation="process"``
+runs each node as a spawned OS process on the host encode path
+(``device="cpu"``, ``use_tpu=False``): the worker never initialises CUDA, so
+only the head may own the card, and a native crash or SIGKILL of a worker
+takes down that worker alone; the head replaces it and the part file resumes.
 """
 
 from __future__ import annotations
@@ -91,12 +94,17 @@ class NodeToken:
 
 class NodeClient:
     """Head-side client for one node: sends a request and validates the ack
-    (session id, request id, ack type), reference recode_server.py:148-200."""
+    (session id, request id, ack type), reference recode_server.py:148-200.
 
-    def __init__(self, token: NodeToken, session_id: str, timeout: float = 5.0):
+    ``alive`` (the node's ``is_alive``) ends the wait for an ack as soon as the
+    node's thread or process has ended, rather than at the timeout.
+    """
+
+    def __init__(self, token: NodeToken, session_id: str, alive, timeout: float = 5.0):
         self._token = token
         self._session_id = session_id
         self._timeout = timeout
+        self._alive = alive
 
     def send_request(self, message: str, mapped_data=None) -> bool:
         request_id = f"{self._token.node_id}-{time.monotonic_ns()}"
@@ -109,14 +117,30 @@ class NodeClient:
         except queue.Empty:
             pass
         self._token.command_queue.put(md.serialize())
-        try:
-            raw = self._token.reply_queue.get(timeout=self._timeout)
-        except queue.Empty:
+        raw = self._wait_for_ack()
+        if raw is None:
             return False
         ack = MessageData.parse(raw)
         return (ack.session_id == self._session_id
                 and ack.get("request_id") == request_id
                 and ack.type == rc.MESSAGE_TYPE_ACK)
+
+    def _wait_for_ack(self):
+        deadline = time.monotonic() + self._timeout
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return None
+            try:
+                return self._token.reply_queue.get(timeout=min(remaining, 0.1))
+            except queue.Empty:
+                pass
+            if not self._alive():
+                # an ack the node sent just before it ended is still delivered
+                try:
+                    return self._token.reply_queue.get(timeout=0.1)
+                except queue.Empty:
+                    return None
 
 
 class Logger:
@@ -204,6 +228,9 @@ class ReCoDeNode:
     def join(self, timeout=None) -> None:
         if self._thread is not None:
             self._thread.join(timeout)
+
+    def is_alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
 
     def _log(self, message, message_type=rc.MESSAGE_TYPE_INFO):
         self._logger.push(f"node-{self.node_id}", message, message_type)
@@ -295,23 +322,170 @@ class ReCoDeNode:
         return int(self._writer._chunk_offset) if self._writer is not None else 0
 
 
+# -------------------------------------------------- crash-isolated workers
+
+
+def _process_node_main(node_id, init_params, input_params, session_id, command_q, reply_q,
+                       log_q, status_val, chunk_off_val, metrics_q, dark_data, data,
+                       fail_on_command, resume, resume_chunk_offset):
+    """Entry point of a crash-isolated worker (``isolation="process"``).
+
+    Runs the thread mode's ``ReCoDeNode`` state machine in its own OS
+    process, on the host encode path: the writer gets ``device="cpu"`` and
+    ``use_tpu=False``, so the worker never initialises CUDA and the card stays
+    the head's.  Its run metrics carry ``cuda_initialized``, read when the
+    node's loop ends.
+    """
+    import torch
+
+    init_params._use_tpu = False
+
+    class _MPLogger:
+        @staticmethod
+        def push(source, message, message_type=rc.MESSAGE_TYPE_INFO):
+            try:
+                log_q.put((source, message, message_type))
+            except (OSError, ValueError):   # the head closed the queue
+                pass
+
+    class _SharedStatusNode(ReCoDeNode):
+        @property
+        def status(self):
+            return status_val.value
+
+        @status.setter
+        def status(self, value):
+            status_val.value = int(value)
+
+        def _process_file(self):
+            super()._process_file()
+            chunk_off_val.value = self.completed_chunk_offset()
+
+    node = _SharedStatusNode(node_id, init_params, input_params, _MPLogger(), session_id,
+                             fail_on_command=fail_on_command, resume=resume,
+                             resume_chunk_offset=resume_chunk_offset, device="cpu")
+    node.token = NodeToken(node_id, command_q, reply_q)
+    node._dark_data = dark_data
+    node._data = data
+    try:
+        node.run()
+    finally:
+        node.run_metrics["cuda_initialized"] = torch.cuda.is_initialized()
+        metrics_q.put(node.run_metrics)
+
+
+class ProcessNodeHandle:
+    """Head-side handle of a crash-isolated worker.  It has the members of
+    ``ReCoDeNode`` that the head uses (token, status, start_thread, join,
+    run_metrics, completed_chunk_offset), so broadcast, replacement and the
+    stream queue manager serve both modes."""
+
+    def __init__(self, node_id: int, init_params: InitParams, input_params: InputParams,
+                 log_queue, session_id: str, fail_on_command=None, resume: bool = False,
+                 resume_chunk_offset: int = 0):
+        import multiprocessing as mp
+
+        self._ctx = mp.get_context("spawn")
+        self.node_id = node_id
+        self._init_params = init_params
+        self._input_params = input_params
+        self._log_queue = log_queue
+        self._session_id = session_id
+        self._fail_on_command = fail_on_command
+        self._resume = resume
+        self._resume_chunk_offset = resume_chunk_offset
+        self._status = self._ctx.Value("i", rc.STATUS_CODE_NOT_READY)
+        self._chunk_off = self._ctx.Value("i", int(resume_chunk_offset))
+        self._metrics_q = self._ctx.Queue()
+        self.token = NodeToken(node_id, self._ctx.Queue(), self._ctx.Queue())
+        self._proc = None
+        self._forced_status: Optional[int] = None
+        self.run_metrics: dict = {}
+
+    def start_thread(self, dark_data=None, data=None) -> None:
+        """Starts the worker process (named as ``ReCoDeNode``'s method)."""
+        self._proc = self._ctx.Process(
+            target=_process_node_main,
+            args=(self.node_id, self._init_params, self._input_params, self._session_id,
+                  self.token.command_queue, self.token.reply_queue, self._log_queue,
+                  self._status, self._chunk_off, self._metrics_q, dark_data, data,
+                  self._fail_on_command, self._resume, self._resume_chunk_offset),
+            daemon=True, name=f"recode-node-{self.node_id}")
+        self._proc.start()
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self._proc.pid if self._proc is not None else None
+
+    def is_alive(self) -> bool:
+        return self._proc is not None and self._proc.is_alive()
+
+    @property
+    def status(self) -> int:
+        if self._forced_status is not None:
+            return self._forced_status
+        value = self._status.value
+        if (self._proc is not None and not self._proc.is_alive()
+                and value != rc.STATUS_CODE_IS_CLOSED):
+            return rc.STATUS_CODE_ERROR   # died without closing
+        return value
+
+    @status.setter
+    def status(self, value) -> None:
+        # the head only forces ERROR on an unresponsive node
+        self._forced_status = int(value)
+
+    def completed_chunk_offset(self) -> int:
+        return int(self._chunk_off.value)
+
+    def join(self, timeout=None) -> None:
+        """Waits for the worker and takes its run metrics.  They are read
+        before the join: a process does not end while data it queued is
+        unread.  A worker that died without them leaves ``run_metrics`` as
+        it was."""
+        if self._proc is None:
+            return
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            try:
+                self.run_metrics = self._metrics_q.get(timeout=0.1)
+                break
+            except queue.Empty:
+                if not self._proc.is_alive() or (deadline is not None
+                                                 and time.monotonic() > deadline):
+                    try:   # what a worker queued just before it ended
+                        self.run_metrics = self._metrics_q.get_nowait()
+                    except queue.Empty:
+                        pass
+                    break
+        self._proc.join(None if deadline is None else max(0.0, deadline - time.monotonic()))
+
+
 class ReCoDeServer:
-    """Head node: orchestrates N thread-mode nodes and a logger."""
+    """Head node: orchestrates N nodes (threads or processes) and a logger."""
 
     def __init__(self, mode: str = "batch", isolation: str = "thread", device="cuda"):
-        isolation = str(isolation).strip().lower()
-        if isolation == "process":
-            raise NotImplementedError(
-                "isolation='process' is not ported yet (ROADMAP Queue 1)")
-        if isolation != "thread":
+        """``isolation``: "thread" (nodes share the process and the card; a
+        Python-level node failure is recovered in place) or "process" (each
+        node is a spawned OS process on the host encode path that never
+        initialises CUDA; a hard crash or SIGKILL of a worker cannot take
+        down the head, which replaces it and resumes the part file).
+        ``device`` is the head's; "cuda" without CUDA raises in both modes.
+        """
+        self._isolation = str(isolation).strip().lower()
+        if self._isolation not in ("thread", "process"):
             raise ValueError("isolation must be 'thread' or 'process'")
         self._device = resolve_device(device)
         self._mode = str(mode).strip().lower()
         self._max_attempts = 10
-        self._client_timeout = 5.0
+        self._client_timeout = 30.0 if self._isolation == "process" else 5.0
         self._session_id = f"rc-{os.getpid()}-{int(time.time())}"
+        self._log_mp_queue = None
 
-    def _node(self, index: int, logger: Logger, **kwargs) -> ReCoDeNode:
+    def _node(self, index: int, logger: Logger, **kwargs):
+        if self._isolation == "process":
+            return ProcessNodeHandle(index, self._init_params_live, self._input_params_live,
+                                     self._log_mp_queue, self._session_id, **kwargs)
         return ReCoDeNode(index, self._init_params_live, self._input_params_live, logger,
                           self._session_id, device=self._device, **kwargs)
 
@@ -340,14 +514,22 @@ class ReCoDeServer:
                             f"({input_params.num_threads} nodes, mode={self._mode})")
 
         self._init_params_live, self._input_params_live = init_params, input_params
+        log_drainer = None
+        if self._isolation == "process":
+            import multiprocessing as mp
+
+            self._log_mp_queue = mp.get_context("spawn").Queue()
+            log_drainer = threading.Thread(target=self._drain_worker_logs, args=(logger,),
+                                           name="recode-log-drain", daemon=True)
+            log_drainer.start()
         nodes = [self._node(i, logger,
                             fail_on_command=fail_node_on_command if i in fail_node_ids else None)
                  for i in range(int(input_params.num_threads))]
         self._nodes = nodes  # exposed for tests/monitoring
         for node in nodes:
             node.start_thread(dark_data=dark_data, data=data)
-        clients = [NodeClient(node.token, self._session_id, timeout=self._client_timeout)
-                   for node in nodes]
+        clients = [NodeClient(node.token, self._session_id, node.is_alive,
+                              timeout=self._client_timeout) for node in nodes]
         self._dark_data, self._data = dark_data, data
 
         try:
@@ -368,10 +550,25 @@ class ReCoDeServer:
         finally:
             for node in nodes:
                 node.join(timeout=30)
+            if log_drainer is not None:
+                self._log_mp_queue.put(None)
+                log_drainer.join(timeout=10)
             logger.push("head", "session closed")
             logger.close()
 
         return {node.node_id: node.run_metrics for node in nodes}
+
+    def _drain_worker_logs(self, logger: Logger) -> None:
+        """Forward the worker processes' log records into the head's Logger."""
+        while True:
+            try:
+                record = self._log_mp_queue.get()
+            except (EOFError, OSError):
+                return
+            if record is None:
+                return
+            source, message, message_type = record
+            logger.push(source, message, message_type)
 
     # -------------------------------------------------------------- broadcast
 
@@ -412,7 +609,7 @@ class ReCoDeServer:
                                  resume_chunk_offset=getattr(self, "_stream_chunk_offset", 0))
         replacement.start_thread(dark_data=self._dark_data, data=self._data)
         nodes[index] = replacement
-        clients[index] = NodeClient(replacement.token, self._session_id,
+        clients[index] = NodeClient(replacement.token, self._session_id, replacement.is_alive,
                                     timeout=self._client_timeout)
         clients[index].send_request("start")
 

@@ -1,1 +1,3 @@
-"""Post-processing utilities of the port."""
+"""Tools layer of the port: calibration, backscattering, offline converters,
+validation frames and the live viewer (pyrecode_tpu/utils/ on PyTorch).
+"""

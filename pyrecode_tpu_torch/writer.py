@@ -752,3 +752,17 @@ class ReCoDeWriter:
             self._validation_file.close()
         if self._compression_pool is not None:
             self._compression_pool.shutdown(wait=False)
+
+
+def print_run_metrics(run_metrics: dict) -> None:
+    """Pretty-print per-frame metrics (reference recode_writer.py:610-618)."""
+    for key, value in run_metrics.items():
+        if key.startswith("frame_"):
+            frames = max(run_metrics.get("run_frames", 1), 1)
+            total = run_metrics.get("frame_time")
+            fraction = value / total if total else float("nan")
+            print(key, "\t", value / frames, "\t", fraction)
+        elif key == "run_dose_rates":
+            print(key, "\t", value, "\t", "Avg.=", np.mean(value))
+        else:
+            print(key, "\t", value)

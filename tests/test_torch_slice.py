@@ -244,8 +244,14 @@ def test_unported_options_raise(tmp_path):
                                                       **overrides),
                                  device="cpu", device_entropy=True)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.ReCoDeServer("batch", isolation="process", device="cpu")
+    # process isolation constructs, runs and reports its workers' pids
+    server = port.ReCoDeServer("batch", isolation="process", device="cpu")
+    server.run(port.InitParams("batch", str(tmp_path), image_filename="x",
+                               log_filename=str(tmp_path / "recode.log")),
+               input_params=port.InputParams(dict(params._param_map, num_threads=2)),
+               dark_data=dark, data=data)
+    pids = [node.pid for node in server._nodes]
+    assert len(set(pids)) == 2 and all(isinstance(p, int) and p != os.getpid() for p in pids)
     assert writer()._device_entropy is True
     assert writer(compression_scheme=12)._device_entropy is True
     # scheme-12 device entropy of L2-L4 codes gaps from the bitmap -> positions kernel
