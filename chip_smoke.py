@@ -65,10 +65,12 @@ Phases (each raises on failure; nothing is caught):
    encode_l1 / decode_l1), the butterfly probe (four variants, SUB 512 and
    2048, four densities, against the stable-compaction oracle), the f32-dot
    probe (tf32 / 3xtf32 / fp32 bit for bit against the twins, 3xtf32 and
-   fp32 exact) and the eight lowering probes (against numpy), each probe's
-   lines printed with the card; then one L1 scheme-0 writer on the 16
-   frames of phase 4 without and with run(profile_dir=) (equal part files,
-   one Chrome trace) and the device busy share from that trace.
+   fp32 exact) and the eight lowering probes (against numpy and the twins,
+   each alone and all eight in one launch through mosaic_all, which is what
+   the phase times), each probe's lines printed with the card; then one L1
+   scheme-0 writer on the 16 frames of phase 4 without and with
+   run(profile_dir=) (equal part files, one Chrome trace) and the device
+   busy share from that trace.
 
 11. the modules (run_modules), at 4096^2 uint16, 12-bit, on detector frames
    made on the card from a seed (make_detector_frames): (a) 32 flat-field
@@ -123,8 +125,8 @@ the same way, and against their twins on their edge batteries
 (assemble_battery, hist_battery, decode_battery).
 
 ``python3 chip_smoke.py passes`` prints only the redesigned kernels' times
-(kernel_passes): CUDA-event ms, host ms and the device operations of one
-call each.
+(kernel_passes, with the probes' probe_passes): CUDA-event ms, host ms and
+the device operations of one call each.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2139,11 +2141,14 @@ def run_tools(device, gpu: str, size: int = 4096) -> dict:
         "decode_l1_phases": phase_entry(
             dec, "decode_l1_phases", "store",
             lambda: hopper_decode.decode_l1_phases_plain(bitmap, values, n, n, "store")),
+        # the eight in one mosaic_all call; no one library call computes all
+        # eight (probe_library_ms: the probes one call computes)
         "probe_mosaic": {"max_abs_err": errs["probe_mosaic"], "ms": mos["all_ms"],
-                         "plain_ms": cuda_event_time(lambda: [hopper_probes.mosaic_plain(k, *t)
-                                                              for k, t in mos_inputs.items()], 3, 1),
+                         "plain_ms": cuda_event_time(
+                             lambda: hopper_probes.mosaic_all_plain(mos_inputs), 3, 1),
                          "bound_ms": mos["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                         "library_ms": None, "probe_ms": mos["ms"]},
+                         "library_ms": None, "probe_ms": mos["ms"],
+                         "probe_library_ms": mos["library_ms"]},
         "probe_f32dot": {"max_abs_err": errs["probe_f32dot"], "ms": modes["3xtf32"]["ms"],
                          "mode": "3xtf32",
                          "plain_ms": cuda_event_time(
@@ -2426,6 +2431,43 @@ def host_ms(fn, reps: int = 20) -> float:
     return seconds / reps * 1e3
 
 
+def probe_passes(device, reps: int = 20) -> dict:
+    """P4 and P3 on their probes' inputs: f32dot in each mode beside the
+    torch.matmul yardstick (``lut @ oh.T``, float32 with TF32 off), the
+    eight lowering probes together and each alone, and each P3 library call
+    (probe_mosaic.library_calls).  For each: {"ms": CUDA-event ms, "host_ms":
+    host_ms, "passes": the device ms of each operation of one call
+    (device_passes), "device_ms": their sum}.  A tree older than mosaic_all
+    runs the eight as the eight mosaic calls its probe timed together, so
+    this also times an older tree put first on sys.path (PERF.md)."""
+    lut_np, oh_np, _ = probe_f32dot.make_inputs()
+    lut, oh = torch.from_numpy(lut_np).to(device), torch.from_numpy(oh_np).to(device)
+    mos = {k: [torch.from_numpy(x).to(device) for x in ins]
+           for k, (ins, _) in probe_mosaic.cases().items()}
+    if hasattr(hopper_probes, "mosaic_all"):
+        calls = {"probe_mosaic_all": lambda: hopper_probes.mosaic_all(mos),
+                 **{f"mosaic_library_{k}": fn
+                    for k, fn in probe_mosaic.library_calls(mos).items() if fn is not None}}
+    else:
+        calls = {"probe_mosaic_all": lambda: [hopper_probes.mosaic(k, *t) for k, t in mos.items()]}
+    calls.update({f"probe_mosaic_{k}": (lambda k=k, t=t: hopper_probes.mosaic(k, *t))
+                  for k, t in mos.items()})
+    calls.update({f"probe_f32dot_{mode}": (lambda mode=mode: hopper_probes.f32dot(lut, oh, mode))
+                  for mode in hopper_probes.F32DOT_MODES})
+    calls["f32dot_matmul"] = lambda: lut @ oh.T
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        result = {}
+        for name, fn in calls.items():
+            passes = device_passes(fn)
+            result[name] = {"ms": cuda_event_time(fn, reps, 3), "host_ms": host_ms(fn),
+                            "passes": passes, "device_ms": sum(passes.values())}
+        return result
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
 def kernel_passes(device, reps: int = 20) -> dict:
     """The redesigned kernels' times on batches like phase 3's, made from
     SEED: CUDA-event ms, host ms (host_ms) and the device ms of each
@@ -2448,8 +2490,9 @@ def kernel_passes(device, reps: int = 20) -> dict:
     values' tokens as phase 3 assembles them, and for bitpack12,
     bitunpack12, decode_l1 (and its P2 cuts decode_l1_store, _count and
     _scan) and bitpack12_words on phase 3's inputs, each with its byte
-    bound.  It times whichever pyrecode_tpu_torch is imported, so
-    it also measures an older tree put first on sys.path (PERF.md)."""
+    bound; and the probes P3 and P4 (probe_passes, under "probes").  It
+    times whichever pyrecode_tpu_torch is imported, so it also measures an
+    older tree put first on sys.path (PERF.md)."""
     rng = np.random.default_rng(SEED)
     frames_np, dark = make_frames(rng, 4, 4096, 4096)
     frames = torch.from_numpy(frames_np).to(device)
@@ -2583,6 +2626,7 @@ def kernel_passes(device, reps: int = 20) -> dict:
             for m in hopper_label.MODES},
         "label_passes": device_passes(
             lambda: hopper_label.encode_l2l4(puddles, pthr, "l2sum", psize, 4095)),
+        "probes": probe_passes(device, reps),
     }
 
 

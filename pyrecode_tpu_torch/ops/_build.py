@@ -125,7 +125,7 @@ def load() -> ctypes.CDLL:
                                                 p]
             lib.pr_probe_butterfly.argtypes = [p, p, p, ctypes.c_int, i64, i64, p]
             lib.pr_probe_f32dot.argtypes = [p, p, p, ctypes.c_int, i64, i64, i64, p]
-            lib.pr_probe_mosaic.argtypes = [ctypes.c_int, p, p, p, p, p]
+            lib.pr_probe_mosaic.argtypes = [ctypes.c_int, p, p, p]
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_bitpack12_words, lib.pr_encode_l1,
                        lib.pr_decode_l1, lib.pr_tokenize, lib.pr_tokenize_compact,
                        lib.pr_assemble, lib.pr_rans_hist, lib.pr_rans_encode,

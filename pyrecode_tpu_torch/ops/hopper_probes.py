@@ -11,12 +11,16 @@ Kernels P3-P5 of the port, the counterparts of the TPU probes in
 * :func:`f32dot` (P4, ``csrc/probe_f32dot.cu``; replaces
   tools/probe_f32dot.py:build): lut . oh^T in float32 on the tensor cores
   in one TF32 pass or in 3xTF32, or by FMA (:data:`F32DOT_MODES`);
-* :func:`mosaic` (P3, ``csrc/probe_mosaic.cu``; replaces the kernels of
-  tools/probe_mosaic.py:20,95,114): the eight lowering probes (a)-(h) at
-  their fixed shapes (:data:`MOSAIC_PROBES`).
+* :func:`mosaic` and :func:`mosaic_all` (P3, ``csrc/probe_mosaic.cu``;
+  replaces the kernels of tools/probe_mosaic.py:20,95,114): the eight
+  lowering probes (a)-(h) at their fixed shapes (:data:`MOSAIC_PROBES`), one
+  probe or all eight in one launch.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -204,6 +208,21 @@ def _check_mosaic(probe: str, inputs) -> None:
             raise ValueError(f"probe ({probe}) input {i} must be {shape}, got {tuple(t.shape)}")
 
 
+def _launch_mosaic(jobs) -> None:
+    """One launch of the probes ``jobs`` [(letter, inputs, outputs)], a block
+    each; the kernel loads and stores 16 bytes at a time."""
+    ptrs = []   # input 0, input 1, output 0, output 1 a probe; null where it has none
+    for _, ins, outs in jobs:
+        ptrs += [t.data_ptr() for t in ins] + [None] * (2 - len(ins))
+        ptrs += [t.data_ptr() for t in outs] + [None] * (2 - len(outs))
+    if any(p % 16 for p in ptrs if p is not None):
+        raise ValueError("the mosaic kernel takes arrays that start on a 16-byte boundary")
+    order = sorted(MOSAIC_PROBES)
+    probes = (ctypes.c_int32 * len(jobs))(*(order.index(letter) for letter, _, _ in jobs))
+    _launch.launch(MOSAIC_LAUNCHES, "pr_probe_mosaic", jobs[0][1][0].device, len(jobs), probes,
+                   (ctypes.c_void_p * len(ptrs))(*ptrs))
+
+
 def mosaic(probe: str, *inputs: torch.Tensor) -> tuple:
     """Probe ``probe`` ("a".."h", MOSAIC_PROBES) on its fixed shapes:
 
@@ -213,15 +232,63 @@ def mosaic(probe: str, *inputs: torch.Tensor) -> tuple:
     (32,128) with the shift s (1,) int32 read on the device; (g) the sum of
     (8,128) % 65521 as (1,1); (h) ``(a << (s & 7)) | (a >> (8 - (s & 7)))``.
 
-    Returns the tuple of outputs."""
+    Returns the tuple of outputs.  On the card the inputs must start on a
+    16-byte boundary, as every fresh allocation does."""
     _check_mosaic(probe, inputs)
     if _launch.on_host(*inputs):
         return mosaic_plain(probe, *inputs)
     dev = inputs[0].device
     outs = tuple(torch.empty(shape, dtype=dtype, device=dev)
                  for shape, dtype in MOSAIC_PROBES[probe][2])
-    ins = [_launch.ptr(t) for t in inputs] + [None] * (2 - len(inputs))
-    out_ptrs = [_launch.ptr(t) for t in outs] + [None] * (2 - len(outs))
-    _launch.launch(MOSAIC_LAUNCHES, "pr_probe_mosaic", dev, sorted(MOSAIC_PROBES).index(probe),
-                   *ins, *out_ptrs)
+    _launch_mosaic([(probe, inputs, outs)])
     return outs
+
+
+def _check_mosaic_all(inputs: dict) -> None:
+    missing = sorted(set(MOSAIC_PROBES) - set(inputs))
+    unknown = sorted(set(inputs) - set(MOSAIC_PROBES))
+    if missing or unknown:
+        raise ValueError(f"mosaic_all takes every probe once: missing {missing}, "
+                         f"unknown {unknown}")
+    for probe, ins in inputs.items():
+        _check_mosaic(probe, tuple(ins))
+
+
+def mosaic_all_plain(inputs: dict) -> dict:
+    """Plain PyTorch version of :func:`mosaic_all`, on any device: each
+    probe's :func:`mosaic_plain`."""
+    _check_mosaic_all(inputs)
+    return {probe: mosaic_plain(probe, *inputs[probe]) for probe in sorted(MOSAIC_PROBES)}
+
+
+def _mosaic_all_layout():
+    """[(probe, offset in int32 words, shape, strides, dtype)] of every output
+    in mosaic_all's one buffer, each at a 16-byte boundary, and the buffer's
+    words."""
+    layout, words = [], 0
+    for probe in sorted(MOSAIC_PROBES):
+        for shape, dtype in MOSAIC_PROBES[probe][2]:
+            layout.append((probe, words, shape, (shape[1], 1), dtype))
+            words += -(-math.prod(shape) // 4) * 4
+    return layout, words
+
+
+_MOSAIC_ALL_LAYOUT, _MOSAIC_ALL_WORDS = _mosaic_all_layout()
+
+
+def mosaic_all(inputs: dict) -> dict:
+    """Every probe of MOSAIC_PROBES in one launch, as the JAX probe's main()
+    runs all eight: ``inputs`` {letter: the probe's inputs, as for
+    :func:`mosaic`} -> {letter: the tuple of its outputs}.  The outputs are
+    views of one allocation."""
+    _check_mosaic_all(inputs)
+    tensors = [t for ins in inputs.values() for t in ins]
+    if _launch.on_host(*tensors):
+        return mosaic_all_plain(inputs)
+    buf = torch.empty(_MOSAIC_ALL_WORDS, dtype=torch.int32, device=tensors[0].device)
+    typed = {torch.int32: buf, torch.float32: buf.view(torch.float32)}
+    outs = {probe: [] for probe in sorted(MOSAIC_PROBES)}
+    for probe, at, shape, strides, dtype in _MOSAIC_ALL_LAYOUT:
+        outs[probe].append(typed[dtype].as_strided(shape, strides, at))
+    _launch_mosaic([(probe, tuple(inputs[probe]), outs[probe]) for probe in outs])
+    return {probe: tuple(o) for probe, o in outs.items()}

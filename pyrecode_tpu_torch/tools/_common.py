@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -26,6 +27,18 @@ def device_ms(fn, device: torch.device, reps: int) -> Optional[float]:
     if device.type != "cuda":
         return None
     return cuda_event_time(fn, reps, OUTER)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """float32 products in full float32 on the card (no TF32) inside the
+    block; the setting is restored after it."""
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
 
 
 def fmt_ms(ms: Optional[float]) -> str:

@@ -36,14 +36,15 @@ from . import _common
 MODES = {"default": "tf32", "high": "3xtf32", "highest": "fp32"}   # JAX precision -> mode
 
 
-def make_inputs():
-    """(lut (48, 32) f32 of integers below 2**21, oh (2048, 32) f32 one-hot
-    rows, want = lut[:, idx]), as the JAX probe builds them."""
-    rng = np.random.default_rng(0)
-    lut = rng.integers(0, 1 << 21, size=(48, 32)).astype(np.float32)
-    idx = rng.integers(0, 32, size=2048).astype(np.int32)
-    oh = (idx[None, :] == np.arange(32)[:, None]).astype(np.float32)
-    return lut, oh.T.copy(), lut[:, idx]
+def make_inputs(m: int = 48, k: int = 32, n: int = 2048, seed: int = 0):
+    """(lut (m, k) f32 of integers below 2**21, oh (n, k) f32 one-hot rows,
+    want = lut[:, idx]); the defaults are the JAX probe's inputs, built as it
+    builds them."""
+    rng = np.random.default_rng(seed)
+    lut = rng.integers(0, 1 << 21, size=(m, k)).astype(np.float32)
+    idx = rng.integers(0, k, size=n).astype(np.int32)
+    oh = (idx[:, None] == np.arange(k)[None, :]).astype(np.float32)
+    return lut, oh, lut[:, idx]
 
 
 def run(device="cuda", reps: int = 20) -> dict:
@@ -67,12 +68,8 @@ def run(device="cuda", reps: int = 20) -> dict:
         lines.append(f"precision={precision} ({mode}): compiled, exact={r['exact']}, "
                      f"maxerr={r['maxerr']}; twin {'equal' if r['twin_equal'] else 'DIFFERS'} "
                      f"bit for bit; {_common.fmt_ms(r['ms'])}")
-    allow = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _common.full_fp32():
         library_ms = _common.device_ms(lambda: lut @ oh.T, dev, reps)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = allow
     lines.append(f"torch.matmul fp32 (allow_tf32=False), not used by the port: "
                  f"{_common.fmt_ms(library_ms)}")
     return {"lines": lines, "modes": modes, "library_ms": library_ms}

@@ -17,8 +17,10 @@ On the card every construct is ordinary CUDA (``csrc/probe_mosaic.cu``,
 division, index arithmetic, a block reduction, per-thread shifts), so the
 question here is only whether each result is exact.  Each is checked
 against numpy (the JAX probe left (h) unchecked; here it is checked) and
-against its plain twin.  Prints OK or FAIL per probe, as the
-JAX probe does.
+against its plain twin, alone (``mosaic``) and with the other seven in one
+launch (``mosaic_all``, what the JAX probe's main() runs).  Prints OK or
+FAIL per probe, as the JAX probe does, with its time and, where one PyTorch
+call computes the same (a yardstick the port never calls), that call's.
 
 Usage: python -m pyrecode_tpu_torch.tools.probe_mosaic [--device cuda]
 """
@@ -56,39 +58,66 @@ def cases() -> dict:
     }
 
 
+def library_calls(inputs: dict) -> dict:
+    """letter -> one PyTorch call that computes what the probe computes, on
+    ``inputs`` (as for ``hopper_probes.mosaic_all``), or None where none
+    does: (a) ``a @ b.T`` in float32 (TF32 off), (b) ``a.T.contiguous()``,
+    (d) ``a.reshape(1, 2048).clone()``, (e) ``a[0::2].contiguous()``, (f)
+    ``torch.roll`` by the shift read once on the host (the kernel reads it
+    on the device)."""
+    a = {k: ts[0] for k, ts in inputs.items()}
+    shift = int(inputs["f"][1][0])
+
+    def nt_dot():
+        with _common.full_fp32():
+            return a["a"] @ inputs["a"][1].T
+
+    return {"a": nt_dot, "b": lambda: a["b"].T.contiguous(), "c": None,
+            "d": lambda: a["d"].reshape(1, 2048).clone(), "e": lambda: a["e"][0::2].contiguous(),
+            "f": lambda: torch.roll(a["f"], shift, 0), "g": None, "h": None}
+
+
 def run(device="cuda", reps: int = 20) -> dict:
-    """The eight probes.  Returns {"lines", "status": {letter: "OK" or "FAIL
-    ..."}, "ms": {letter: ms or None}, "all_ms": the eight launches' ms
-    together or None, "bytes": what the eight move, "max_abs_err": the
-    largest difference of a probe from its twin}."""
+    """The eight probes, each alone and all eight in one launch.  Returns
+    {"lines", "status": {letter: "OK" or "FAIL ..."}, "ms": {letter: ms or
+    None}, "library_ms": {letter: ms of library_calls' call, or None},
+    "all_ms": ms of the eight in one mosaic_all call or None, "bytes": what
+    the eight move, "max_abs_err": the largest difference of a probe, alone
+    or in mosaic_all, from its twin}."""
     dev = _common.device_of(device)
     lines, status, times, n_bytes, worst = [f"lowering probes, on {dev}"], {}, {}, 0, 0
-    inputs = {}
-    for letter, (ins, want) in cases().items():
+    expected = {letter: want for letter, (_, want) in cases().items()}
+    inputs = {letter: [torch.from_numpy(x).to(dev) for x in ins]
+              for letter, (ins, _) in cases().items()}
+    together = hopper_probes.mosaic_all(inputs)
+    library = library_calls(inputs)
+    library_ms = {}
+    for letter, ts in inputs.items():
         label = hopper_probes.MOSAIC_PROBES[letter][0]
-        ts = [torch.from_numpy(x).to(dev) for x in ins]
-        inputs[letter] = ts
         got = hopper_probes.mosaic(letter, *ts)
         n_bytes += _common.nbytes(*ts, *got)
-        bad = [f"output {i} differs from numpy" for i, (g, w) in enumerate(zip(got, want))
+        bad = [f"{how} output {i} differs from numpy"
+               for how, outs in (("its", got), ("mosaic_all's", together[letter]))
+               for i, (g, w) in enumerate(zip(outs, expected[letter]))
                if not np.array_equal(g.cpu().numpy(), w)]
-        err = _common.max_abs_err(got, hopper_probes.mosaic_plain(letter, *ts))
+        twin = hopper_probes.mosaic_plain(letter, *ts)
+        err = max(_common.max_abs_err(got, twin), _common.max_abs_err(together[letter], twin))
         if err:
             bad.append("differs from its twin")
         worst = max(worst, err)
         times[letter] = _common.device_ms(lambda: hopper_probes.mosaic(letter, *ts), dev, reps)
+        library_ms[letter] = (_common.device_ms(library[letter], dev, reps)
+                              if library[letter] is not None else None)
         status[letter] = "OK" if not bad else "FAIL " + "; ".join(bad)
+        yardstick = ("no one library call" if library[letter] is None
+                     else f"one library call {_common.fmt_ms(library_ms[letter])}")
         lines.append(f"({letter}) {label}: {status[letter]} {[tuple(g.shape) for g in got]} "
-                     f"({_common.fmt_ms(times[letter])})")
+                     f"({_common.fmt_ms(times[letter])}; {yardstick})")
 
-    def all_eight():
-        for letter, ts in inputs.items():
-            hopper_probes.mosaic(letter, *ts)
-
-    all_ms = _common.device_ms(all_eight, dev, reps)
-    lines.append(f"the eight launches together: {_common.fmt_ms(all_ms)}")
-    return {"lines": lines, "status": status, "ms": times, "all_ms": all_ms, "bytes": n_bytes,
-            "max_abs_err": worst}
+    all_ms = _common.device_ms(lambda: hopper_probes.mosaic_all(inputs), dev, reps)
+    lines.append(f"the eight in one launch (mosaic_all): {_common.fmt_ms(all_ms)}")
+    return {"lines": lines, "status": status, "ms": times, "library_ms": library_ms,
+            "all_ms": all_ms, "bytes": n_bytes, "max_abs_err": worst}
 
 
 def main(argv=None) -> int:

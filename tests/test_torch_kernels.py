@@ -20,6 +20,7 @@ from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tabl
 from pyrecode_tpu_torch.ops import (_launch, hopper_bitpack, hopper_decode, hopper_deflate,
                                     hopper_encode, hopper_gaps, hopper_label, hopper_probes,
                                     hopper_rans, hopper_tokens)
+from pyrecode_tpu_torch.tools import probe_f32dot
 from chip_smoke import (DECODE_SHAPES, assemble_battery, decode_battery, hist_battery,
                         label_edge_frames, label_tile_shapes, make_puddle_frames,
                         posdecode_span_battery)
@@ -881,28 +882,102 @@ def test_probe_butterfly_matches_twin(cuda, sub, variant):
         assert np.array_equal(got.cpu().numpy(), want)
 
 
+# (m, k, n): the probe's; n = 136 = 8 mod 16 (the last 16-column strip's
+# second n8 tile masked) at k = 24 (not a multiple of the 32-deep chunk);
+# m = 16 (one m16 tile a block); k = 40 and 64 (two chunks, the second
+# ragged or whole); m = 80 (a second row of blocks)
+F32DOT_SHAPES = [(48, 32, 2048), (32, 24, 136), (16, 32, 200), (48, 40, 2048), (64, 64, 264),
+                 (80, 64, 136)]
+
+
+@pytest.mark.parametrize("shape", F32DOT_SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("mode", hopper_probes.F32DOT_MODES)
-def test_probe_f32dot_matches_twin(cuda, mode):
+def test_probe_f32dot_matches_twin(cuda, mode, shape):
     """Bit for bit against the twin on one-hot products of 21-bit integers;
     exact but for one TF32 pass, which rounds to 11 significant bits."""
-    rng = np.random.default_rng(54)
-    lut = rng.integers(0, 1 << 21, (32, 24)).astype(np.float32)
-    idx = rng.integers(0, 24, 136)
-    oh = (idx[:, None] == np.arange(24)[None, :]).astype(np.float32)
+    lut, oh, want = probe_f32dot.make_inputs(*shape, seed=54)
     a, b = torch.from_numpy(lut).to(cuda), torch.from_numpy(oh).to(cuda)
+    before = hopper_probes.F32DOT_LAUNCHES.value
     got = hopper_probes.f32dot(a, b, mode)
+    assert hopper_probes.F32DOT_LAUNCHES.value == before + 1
     _equal([got.view(torch.int32)], [hopper_probes.f32dot_plain(a, b, mode).view(torch.int32)])
-    err = np.abs(got.cpu().numpy() - lut[:, idx]).max()
+    err = np.abs(got.cpu().numpy() - want).max()
     assert (err == 0) if mode != "tf32" else (0 < err <= 512)
+    # operands that start off a 16-byte boundary take the kernel's 4-byte loads
+    a_off, b_off = (torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape)
+                    for t in (a, b))
+    a_off.copy_(a)
+    b_off.copy_(b)
+    _equal([hopper_probes.f32dot(a_off, b_off, mode)], [got])
 
 
-@pytest.mark.parametrize("probe", sorted(hopper_probes.MOSAIC_PROBES))
-def test_probe_mosaic_matches_twin(cuda, probe):
+@pytest.mark.parametrize("shape", [(1, 1, 1), (37, 29, 101), (70, 3, 17), (5, 36, 6)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_probe_f32dot_fp32_takes_any_shape(cuda, shape):
+    """fp32 on shapes the mma modes refuse: k % 4 != 0 (4-byte copies), n %
+    4 != 0 (element stores), m not a multiple of 16; and an operand that
+    starts off a 16-byte boundary."""
+    lut, oh, want = probe_f32dot.make_inputs(*shape, seed=55)
+    a, b = torch.from_numpy(lut).to(cuda), torch.from_numpy(oh).to(cuda)
+    got = hopper_probes.f32dot(a, b, "fp32")
+    _equal([got.view(torch.int32)], [hopper_probes.f32dot_plain(a, b, "fp32").view(torch.int32)])
+    assert np.array_equal(got.cpu().numpy(), want)
+    off = torch.empty(a.numel() + 1, dtype=torch.float32, device=cuda)[1:].view(a.shape)
+    off.copy_(a)
+    assert np.array_equal(hopper_probes.f32dot(off, b, "fp32").cpu().numpy(), want)
+
+
+def _mosaic_inputs(cuda, random: bool) -> dict:
+    """The probe's inputs, or seeded random ones: small integers as floats for
+    (a) (exact in any order of the sums), negative values for (c), a
+    negative shift for (f), sums past 2**31 for (g), any bits for (h)."""
     from pyrecode_tpu_torch.tools.probe_mosaic import cases
 
-    ins, want = cases()[probe]
-    ts = [torch.from_numpy(x).to(cuda) for x in ins]
+    ins = {k: list(v) for k, (v, _) in cases().items()}
+    if random:
+        rng = np.random.default_rng(56)
+        big = np.iinfo(np.int32)
+        ins["a"] = [rng.integers(-8, 9, s).astype(np.float32) for s in ((8, 128), (32, 128))]
+        ins["b"] = [rng.standard_normal((32, 128)).astype(np.float32)]
+        for k in "cdeg":
+            ins[k] = [rng.integers(big.min, big.max, ins[k][0].shape, dtype=np.int32)]
+        ins["f"] = [rng.integers(big.min, big.max, (32, 128), dtype=np.int32),
+                    np.array([-37], np.int32)]
+        ins["h"] = [rng.integers(big.min, big.max, (8, 128), dtype=np.int32) for _ in range(2)]
+    return {k: [torch.from_numpy(x).to(cuda) for x in v] for k, v in ins.items()}
+
+
+@pytest.mark.parametrize("random", [False, True], ids=["probe_inputs", "random"])
+@pytest.mark.parametrize("probe", sorted(hopper_probes.MOSAIC_PROBES))
+def test_probe_mosaic_matches_twin(cuda, probe, random):
+    from pyrecode_tpu_torch.tools.probe_mosaic import cases
+
+    ts = _mosaic_inputs(cuda, random)[probe]
+    before = hopper_probes.MOSAIC_LAUNCHES.value
     got = hopper_probes.mosaic(probe, *ts)
+    assert hopper_probes.MOSAIC_LAUNCHES.value == before + 1
     _equal(got, hopper_probes.mosaic_plain(probe, *ts))
-    for g, w in zip(got, want):
-        assert np.array_equal(g.cpu().numpy(), w)
+    if not random:
+        for g, w in zip(got, cases()[probe][1]):
+            assert np.array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.parametrize("random", [False, True], ids=["probe_inputs", "random"])
+def test_probe_mosaic_all_matches_twins(cuda, random):
+    """The eight in one launch: each probe's outputs equal its twin's (and
+    numpy's on the probe's inputs); MOSAIC_LAUNCHES rises by one a call."""
+    from pyrecode_tpu_torch.tools.probe_mosaic import cases
+
+    inputs = _mosaic_inputs(cuda, random)
+    for _ in range(2):
+        before = hopper_probes.MOSAIC_LAUNCHES.value
+        got = hopper_probes.mosaic_all(inputs)
+        assert hopper_probes.MOSAIC_LAUNCHES.value == before + 1
+        want = hopper_probes.mosaic_all_plain(inputs)
+        assert sorted(got) == sorted(hopper_probes.MOSAIC_PROBES)
+        for probe, outs in got.items():
+            assert all(o.data_ptr() % 16 == 0 for o in outs)
+            _equal(outs, want[probe])
+            if not random:
+                for g, w in zip(outs, cases()[probe][1]):
+                    assert np.array_equal(g.cpu().numpy(), w)

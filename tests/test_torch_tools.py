@@ -11,8 +11,11 @@ and against numpy, exactly; and each probe tool end to end with
 * P5, the butterfly, against the JAX probe's own formulations inside
   ``pl.pallas_call(..., interpret=True)`` and the stable-compaction oracle;
 * P4, the f32 product, against ``lut[:, idx]``, ``jax.lax.dot_general`` at
-  HIGHEST and a numpy emulation of TF32 rounding;
-* P3, the eight lowering probes, against numpy.
+  HIGHEST, a numpy emulation of TF32 rounding, and the JAX probe's kernel
+  body at HIGHEST inside ``pl.pallas_call(..., interpret=True)``;
+* P3, the eight lowering probes, alone and through ``mosaic_all``, against
+  numpy and against the JAX probe's kernel bodies inside
+  ``pl.pallas_call(..., interpret=True)`` (SMEM specs as the probe has them).
 
 tests/test_torch_kernels.py holds each kernel against its twin on the card.
 """
@@ -23,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from pyrecode_tpu.ops import pallas_decode, pallas_encode
 from pyrecode_tpu.ops.bitpack import bitpack_values as jax_bitpack_values
@@ -154,6 +158,142 @@ def test_f32dot_twin(mode):
         jax_out = jax.lax.dot_general(jnp.asarray(lut), jnp.asarray(oh), (((1,), (1,)), ((), ())),
                                       preferred_element_type=jnp.float32, precision="highest")
         assert np.array_equal(got.view(np.int32), np.asarray(jax_out).view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [None, (32, 24, 136), (16, 40, 64)],
+                         ids=["probe", "32x24x136", "16x40x64"])
+@pytest.mark.parametrize("mode", ["3xtf32", "fp32"])
+def test_f32dot_twin_matches_the_pallas_probe(mode, shape):
+    """The JAX probe's kernel body (tools/probe_f32dot.py:build) at
+    precision HIGHEST in interpret mode: bit-equal to the twins that keep 21
+    bits, on the probe's one-hot inputs and on two other shapes."""
+    lut, oh, want = probe_f32dot.make_inputs(*shape, seed=57) if shape else \
+        probe_f32dot.make_inputs()
+
+    def kernel(lut_ref, oh_ref, o_ref):
+        o_ref[...] = jax.lax.dot_general(
+            lut_ref[...], oh_ref[...], (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32, precision="highest")
+
+    call = pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(want.shape, jnp.float32),
+                          interpret=True)
+    jax_out = np.asarray(call(jnp.asarray(lut), jnp.asarray(oh)))
+    got = hopper_probes.f32dot(torch.from_numpy(lut), torch.from_numpy(oh), mode).numpy()
+    assert np.array_equal(got.view(np.int32), jax_out.view(np.int32))
+    assert np.array_equal(got, want)
+
+
+# the JAX probe's kernel bodies, as tools/probe_mosaic.py:main writes them
+def _k_nt(a_ref, b_ref, o_ref):
+    o_ref[...] = jax.lax.dot_general(a_ref[...], b_ref[...], (((1,), (1,)), ((), ())),
+                                     preferred_element_type=jnp.float32)
+
+
+def _k_tr(a_ref, o_ref):
+    o_ref[...] = a_ref[...].T
+
+
+def _k_mod(a_ref, o_ref, o2_ref):
+    o_ref[...] = a_ref[...] % 258
+    o2_ref[...] = a_ref[...] // 258
+
+
+def _k_merge(a_ref, o_ref):
+    o_ref[...] = a_ref[...].reshape(1, 2048)
+
+
+def _k_stride(a_ref, o_ref):
+    o_ref[...] = a_ref[0::2, :]
+
+
+def _k_roll0(a_ref, s_ref, o_ref):
+    o_ref[...] = pltpu.roll(a_ref[...], s_ref[0], axis=0)
+
+
+def _k_smod(a_ref, o_ref):
+    s = jnp.sum(a_ref[...].astype(jnp.int32))
+    o_ref[0, 0] = s % 65521
+
+
+def _k_shift(a_ref, s_ref, o_ref):
+    o_ref[...] = (a_ref[...] << (s_ref[...] & 7)) | (a_ref[...] >> (8 - (s_ref[...] & 7)))
+
+
+PALLAS_MOSAIC = {"a": _k_nt, "b": _k_tr, "c": _k_mod, "d": _k_merge, "e": _k_stride,
+                 "f": _k_roll0, "g": _k_smod, "h": _k_shift}
+
+
+def _pallas_mosaic(probe, inputs):
+    """The JAX probe's kernel for ``probe`` on numpy ``inputs``, by
+    pl.pallas_call in interpret mode, with the probe's SMEM specs for (f)
+    and (g) (tools/probe_mosaic.py:96-99, :116)."""
+    outs = [jax.ShapeDtypeStruct(shape, jnp.float32 if dtype == torch.float32 else jnp.int32)
+            for shape, dtype in hopper_probes.MOSAIC_PROBES[probe][2]]
+    specs = {"f": {"in_specs": [pl.BlockSpec(memory_space=pltpu.VMEM),
+                                pl.BlockSpec(memory_space=pltpu.SMEM)]},
+             "g": {"out_specs": pl.BlockSpec(memory_space=pltpu.SMEM)}}.get(probe, {})
+    call = pl.pallas_call(PALLAS_MOSAIC[probe], out_shape=outs if len(outs) > 1 else outs[0],
+                          interpret=True, **specs)
+    got = call(*map(jnp.asarray, inputs))
+    return [np.asarray(g) for g in (got if isinstance(got, (tuple, list)) else [got])]
+
+
+def _mosaic_inputs(random: bool) -> dict:
+    """The probe's inputs, or seeded random ones: small integers as floats
+    for (a), negative values for (c), shifts past either end for (f), sums
+    that stay inside int32 for (g) (the JAX body sums in int32, the port in
+    int64), any bits for (h)."""
+    ins = {k: list(v) for k, (v, _) in probe_mosaic.cases().items()}
+    if random:
+        rng = np.random.default_rng(58)
+        big = np.iinfo(np.int32)
+        ins["a"] = [rng.integers(-8, 9, s).astype(np.float32) for s in ((8, 128), (32, 128))]
+        ins["b"] = [rng.standard_normal((32, 128)).astype(np.float32)]
+        for k in "cde":
+            ins[k] = [rng.integers(big.min, big.max, ins[k][0].shape, dtype=np.int32)]
+        ins["f"] = [rng.integers(big.min, big.max, (32, 128), dtype=np.int32),
+                    np.array([-37], np.int32)]
+        ins["g"] = [rng.integers(-2**20, 2**20, (8, 128), dtype=np.int32)]
+        ins["h"] = [rng.integers(big.min, big.max, (8, 128), dtype=np.int32) for _ in range(2)]
+    return ins
+
+
+@pytest.mark.parametrize("random", [False, True], ids=["probe_inputs", "random"])
+@pytest.mark.parametrize("probe", sorted(hopper_probes.MOSAIC_PROBES))
+def test_mosaic_twin_matches_the_pallas_probe(probe, random):
+    ins = _mosaic_inputs(random)[probe]
+    got = hopper_probes.mosaic_plain(probe, *map(torch.from_numpy, ins))
+    want = _pallas_mosaic(probe, ins)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("random", [False, True], ids=["probe_inputs", "random"])
+def test_mosaic_all_matches_the_pallas_probe(random):
+    """mosaic_all_plain, and mosaic_all on CPU tensors (its twin), give every
+    probe's outputs as the JAX probe's kernels do."""
+    ins = _mosaic_inputs(random)
+    tensors = {k: [torch.from_numpy(x) for x in v] for k, v in ins.items()}
+    for got in (hopper_probes.mosaic_all_plain(tensors), hopper_probes.mosaic_all(tensors)):
+        assert sorted(got) == sorted(hopper_probes.MOSAIC_PROBES)
+        for probe, outs in got.items():
+            for g, w in zip(outs, _pallas_mosaic(probe, ins[probe]), strict=True):
+                assert np.array_equal(g.numpy(), w)
+
+
+def test_mosaic_all_rejects_bad_arguments():
+    good = {k: [torch.from_numpy(x) for x in v] for k, (v, _) in probe_mosaic.cases().items()}
+    with pytest.raises(ValueError, match=r"missing \['c'\]"):
+        hopper_probes.mosaic_all({k: v for k, v in good.items() if k != "c"})
+    with pytest.raises(ValueError, match=r"unknown \['z'\]"):
+        hopper_probes.mosaic_all({**good, "z": good["a"]})
+    with pytest.raises(ValueError, match=r"probe \(e\) input 0 must be \(16, 128\)"):
+        hopper_probes.mosaic_all({**good, "e": [torch.zeros((8, 128), dtype=torch.int32)]})
+    with pytest.raises(TypeError, match="input 1 must be torch.int32"):
+        hopper_probes.mosaic_all({**good, "h": [good["h"][0], good["h"][1].float()]})
+    with pytest.raises(ValueError, match=r"probe \(f\) takes 2 inputs"):
+        hopper_probes.mosaic_all({**good, "f": good["f"][:1]})
 
 
 @pytest.mark.parametrize("probe", sorted(hopper_probes.MOSAIC_PROBES))
