@@ -63,7 +63,8 @@ Phases (each raises on failure; nothing is caught):
 10. the tools (pyrecode_tpu_torch.tools): the encode and decode phase
    probes at 4 x 4096^2, 1% (each cut-off against its twin, "full" against
    encode_l1 / decode_l1), the butterfly probe (four variants, SUB 512 and
-   2048, four densities, against the stable-compaction oracle), the f32-dot
+   2048, four densities, each alone and the four in one launch through
+   butterfly_all, against the twins and the stable-compaction oracle), the f32-dot
    probe (tf32 / 3xtf32 / fp32 bit for bit against the twins, 3xtf32 and
    fp32 exact) and the eight lowering probes (against numpy and the twins,
    each alone and all eight in one launch through mosaic_all, which is what
@@ -125,8 +126,9 @@ the same way, and against their twins on their edge batteries
 (assemble_battery, hist_battery, decode_battery).
 
 ``python3 chip_smoke.py passes`` prints only the redesigned kernels' times
-(kernel_passes, with the probes' probe_passes): CUDA-event ms, host ms and
-the device operations of one call each.
+(kernel_passes, with the probes' probe_passes: P3, P4 and P5 beside their
+yardsticks): CUDA-event ms, host ms and the device operations of one call
+each.
 
 The last lines are the card, the per-kernel JSON object and the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2156,15 +2158,21 @@ def run_tools(device, gpu: str, size: int = 4096) -> dict:
                          "bound_ms": dot_s[dot_by] * 1e3, "bound_by": dot_by,
                          "library_ms": dot["library_ms"],
                          "mode_ms": {k: r["ms"] for k, r in modes.items()}},
+        # device_ms: queued_ms (the profiler's traces of this phase can come
+        # back without their device intervals; probe_passes traces P5 alone)
         "probe_butterfly": {"max_abs_err": errs["probe_butterfly"],
                             "ms": fly["ms"][2048, "two_array"],
                             "variant": "two_array, SUB 2048, density 0.95",
+                            "device_ms": queued_ms(
+                                lambda: hopper_probes.butterfly(m, v, "two_array")),
+                            "all_device_ms": queued_ms(lambda: hopper_probes.butterfly_all(m, v)),
                             "plain_ms": cuda_event_time(lambda: hopper_probes.butterfly_plain(
                                 m, v, "two_array"), 3, 1),
                             "bound_ms": io_bytes(m, v, v) / HBM_BYTES_PER_S * 1e3,
                             "bound_by": "bytes", "library_ms": None,
                             "variant_ms": {f"{name} SUB {sub}": t
-                                           for (sub, name), t in fly["ms"].items()}},
+                                           for (sub, name), t in fly["ms"].items()},
+                            "all_ms": {f"SUB {sub}": t for sub, t in fly["all_ms"].items()}},
     }
     return {"launches": launches, "stats": stats}
 
@@ -2417,6 +2425,30 @@ def run_modules(device, gpu: str, work_dir: Path, size: int = 4096) -> dict:
     return result
 
 
+def queued_ms(fn, reps: int = 20, outer: int = 3) -> float:
+    """Device milliseconds a call of ``fn`` takes when the device never
+    waits for the host, without the profiler: ``reps`` calls queued behind
+    a spin kernel that outlasts their launches, between two CUDA events
+    (the gaps between kernels included); the median of ``outer`` runs."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 20, []
+    while len(times) < outer:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()   # the spin still ran when the last call was queued
+        end.synchronize()
+        if queued:
+            times.append(start.elapsed_time(end) / reps)
+        else:
+            cycles *= 2
+    return sorted(times)[outer // 2]
+
+
 def host_ms(fn, reps: int = 20) -> float:
     """Host milliseconds of one call of ``fn``: ``reps`` calls queued back to
     back after a synchronize, timed without waiting for the device (too few
@@ -2431,10 +2463,44 @@ def host_ms(fn, reps: int = 20) -> float:
     return seconds / reps * 1e3
 
 
+def sort_gather(mask: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """P5's yardstick, a composition of library calls (the port never calls
+    it): each row's foreground values packed to its front in lane order by
+    a stable sort of the background flag and a gather, the tail zeroed."""
+    order = torch.sort((mask <= 0).to(torch.int8), dim=1, stable=True).indices
+    front = torch.arange(mask.shape[1], device=mask.device) < (mask > 0).sum(dim=1, keepdim=True)
+    return torch.where(front, torch.gather(vals, 1, order), 0)
+
+
+def butterfly_calls(device) -> dict:
+    """P5's calls on the probe's density-0.95 inputs at SUB 512 and 2048
+    (probe_butterfly.run's "timed", drawn as it draws them): butterfly in
+    each variant, the four in one butterfly_all call (a tree older than
+    butterfly_all: its four butterfly calls), and sort_gather, which must
+    equal the kernel there."""
+    four = getattr(hopper_probes, "butterfly_all", None) or (
+        lambda m, v: [hopper_probes.butterfly(m, v, name)
+                      for name in hopper_probes.BUTTERFLY_VARIANTS])
+    rng = np.random.default_rng(1)
+    calls = {}
+    for sub in probe_butterfly.SUBS:
+        _, m_np, v_np = probe_butterfly.make_cases(rng, sub)[-1]
+        m, v = torch.from_numpy(m_np).to(device), torch.from_numpy(v_np).to(device)
+        for name in hopper_probes.BUTTERFLY_VARIANTS:
+            calls[f"probe_butterfly_{sub}_{name.split()[0]}"] = (
+                lambda m=m, v=v, name=name: hopper_probes.butterfly(m, v, name))
+        calls[f"probe_butterfly_all_{sub}"] = lambda m=m, v=v: four(m, v)
+        expect(torch.equal(sort_gather(m, v), hopper_probes.butterfly(m, v, "two_array")),
+               f"sort_gather differs from the butterfly at SUB {sub}")
+        calls[f"butterfly_sort_gather_{sub}"] = lambda m=m, v=v: sort_gather(m, v)
+    return calls
+
+
 def probe_passes(device, reps: int = 20) -> dict:
-    """P4 and P3 on their probes' inputs: f32dot in each mode beside the
-    torch.matmul yardstick (``lut @ oh.T``, float32 with TF32 off), the
-    eight lowering probes together and each alone, and each P3 library call
+    """P5, P4 and P3 on their probes' inputs: the butterfly calls
+    (butterfly_calls), f32dot in each mode beside the torch.matmul yardstick
+    (``lut @ oh.T``, float32 with TF32 off), the eight lowering probes
+    together and each alone, and each P3 library call
     (probe_mosaic.library_calls).  For each: {"ms": CUDA-event ms, "host_ms":
     host_ms, "passes": the device ms of each operation of one call
     (device_passes), "device_ms": their sum}.  A tree older than mosaic_all
@@ -2455,6 +2521,7 @@ def probe_passes(device, reps: int = 20) -> dict:
     calls.update({f"probe_f32dot_{mode}": (lambda mode=mode: hopper_probes.f32dot(lut, oh, mode))
                   for mode in hopper_probes.F32DOT_MODES})
     calls["f32dot_matmul"] = lambda: lut @ oh.T
+    calls.update(butterfly_calls(device))
     allow = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -2490,7 +2557,7 @@ def kernel_passes(device, reps: int = 20) -> dict:
     values' tokens as phase 3 assembles them, and for bitpack12,
     bitunpack12, decode_l1 (and its P2 cuts decode_l1_store, _count and
     _scan) and bitpack12_words on phase 3's inputs, each with its byte
-    bound; and the probes P3 and P4 (probe_passes, under "probes").  It
+    bound; and the probes P3, P4 and P5 (probe_passes, under "probes").  It
     times whichever pyrecode_tpu_torch is imported, so it also measures an
     older tree put first on sys.path (PERF.md)."""
     rng = np.random.default_rng(SEED)

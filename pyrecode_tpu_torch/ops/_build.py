@@ -123,7 +123,8 @@ def load() -> ctypes.CDLL:
                                                 ctypes.c_int, ctypes.c_int, p]
             lib.pr_decode_l1_phases.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, ctypes.c_int,
                                                 p]
-            lib.pr_probe_butterfly.argtypes = [p, p, p, ctypes.c_int, i64, i64, p]
+            lib.pr_probe_butterfly.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, i64, i64,
+                                                p]
             lib.pr_probe_f32dot.argtypes = [p, p, p, ctypes.c_int, i64, i64, i64, p]
             lib.pr_probe_mosaic.argtypes = [ctypes.c_int, p, p, p]
             for fn in (lib.pr_bitpack12, lib.pr_bitunpack12, lib.pr_bitpack12_words, lib.pr_encode_l1,

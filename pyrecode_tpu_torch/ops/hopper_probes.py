@@ -4,10 +4,11 @@ Kernels P3-P5 of the port, the counterparts of the TPU probes in
 ``tools/`` that reach ``pl.pallas_call`` themselves; the developer tools in
 :mod:`pyrecode_tpu_torch.tools` drive them.
 
-* :func:`butterfly` (P5, ``csrc/probe_butterfly.cu``; replaces the kernel of
-  tools/probe_butterfly.py:127): the LSB-first log-shift left-pack of each
-  row's foreground values, in the JAX probe's four formulations
-  (:data:`BUTTERFLY_VARIANTS`);
+* :func:`butterfly` and :func:`butterfly_all` (P5, ``csrc/probe_butterfly.cu``;
+  replaces the kernel of tools/probe_butterfly.py:127): the LSB-first
+  log-shift left-pack of each row's foreground values, in one of the JAX
+  probe's four formulations (:data:`BUTTERFLY_VARIANTS`) or all four in one
+  launch, a block a (formulation, row);
 * :func:`f32dot` (P4, ``csrc/probe_f32dot.cu``; replaces
   tools/probe_f32dot.py:build): lut . oh^T in float32 on the tensor cores
   in one TF32 pass or in 3xTF32, or by FMA (:data:`F32DOT_MODES`);
@@ -57,7 +58,9 @@ def _check_rows(mask: torch.Tensor, vals: torch.Tensor) -> None:
     _launch.require(vals, "vals", torch.int32, 2)
     if mask.shape != vals.shape:
         raise ValueError(f"mask {tuple(mask.shape)} and vals {tuple(vals.shape)} differ")
-    sub = mask.shape[1]
+    rows, sub = mask.shape
+    if rows < 1:
+        raise ValueError("mask and vals must hold at least one row")
     if sub < 32 or sub > 2048 or sub & (sub - 1):
         raise ValueError(f"rows must hold a power of two of 32..2048 lanes, got {sub}")
 
@@ -98,23 +101,49 @@ def butterfly_plain(mask: torch.Tensor, vals: torch.Tensor, variant: str) -> tor
     return carry & 0xFFFF
 
 
+def _launch_butterfly(mask: torch.Tensor, vals: torch.Tensor, out: torch.Tensor, first: int,
+                      count: int) -> None:
+    """One launch of formulations first .. first + count - 1 on every row
+    into ``out`` ((count, S, SUB) int32 words)."""
+    rows, sub = mask.shape
+    _launch.launch(BUTTERFLY_LAUNCHES, "pr_probe_butterfly", mask.device, _launch.ptr(mask),
+                   _launch.ptr(vals), _launch.ptr(out), first, count, rows, sub)
+
+
 def butterfly(mask: torch.Tensor, vals: torch.Tensor, variant: str) -> torch.Tensor:
     """mask, vals (S, SUB) int32 -> (S, SUB) int32: each row's values at its
     foreground lanes (mask > 0) packed to the row's front in lane order,
     zeros behind, each ``& 0xFFFF``, by the formulation ``variant`` (one of
-    BUTTERFLY_VARIANTS).  SUB a power of two in 32..2048; values below
-    2**16 (the packed variants carry the distance in the high half)."""
+    BUTTERFLY_VARIANTS).  S >= 1; SUB a power of two in 32..2048; values
+    below 2**16 (the packed variants carry the distance in the high half)."""
     if variant not in BUTTERFLY_VARIANTS:
         raise ValueError(f"variant must be one of {BUTTERFLY_VARIANTS}, got {variant!r}")
     _check_rows(mask, vals)
     if _launch.on_host(mask, vals):
         return butterfly_plain(mask, vals, variant)
     out = torch.empty_like(vals)
-    rows, sub = mask.shape
-    _launch.launch(BUTTERFLY_LAUNCHES, "pr_probe_butterfly", mask.device, _launch.ptr(mask),
-                   _launch.ptr(vals), _launch.ptr(out), BUTTERFLY_VARIANTS.index(variant),
-                   rows, sub)
+    _launch_butterfly(mask, vals, out, BUTTERFLY_VARIANTS.index(variant), 1)
     return out
+
+
+def butterfly_all_plain(mask: torch.Tensor, vals: torch.Tensor) -> dict:
+    """Plain PyTorch version of :func:`butterfly_all`, on any device: each
+    variant's :func:`butterfly_plain`."""
+    return {name: butterfly_plain(mask, vals, name) for name in BUTTERFLY_VARIANTS}
+
+
+def butterfly_all(mask: torch.Tensor, vals: torch.Tensor) -> dict:
+    """The four formulations in one launch, as the JAX probe's main() runs
+    all four on the same cases: mask, vals as for :func:`butterfly` ->
+    {variant: (S, SUB) int32} for every name in BUTTERFLY_VARIANTS.  The
+    outputs are views of one allocation."""
+    _check_rows(mask, vals)
+    if _launch.on_host(mask, vals):
+        return butterfly_all_plain(mask, vals)
+    out = torch.empty((len(BUTTERFLY_VARIANTS), *vals.shape), dtype=torch.int32,
+                      device=vals.device)
+    _launch_butterfly(mask, vals, out, 0, len(BUTTERFLY_VARIANTS))
+    return dict(zip(BUTTERFLY_VARIANTS, out))
 
 
 def rna_tf32(x: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,15 @@ collision-free, exact in numpy and in interpret mode) diverged on a real
 v5e at >= 25% foreground density, and the probe ran four formulations of
 the same routing against the stable-compaction oracle so that the hardware
 could localize Mosaic's miscompile.  Here the same four formulations run
-as ``csrc/probe_butterfly.cu`` (``hopper_probes.butterfly``): one block a
-row, the row in shared memory, the stages separated by barriers.  All four
-are expected to equal the oracle at every density; a mismatch is a kernel
-bug, not a finding about the card.
+as ``csrc/probe_butterfly.cu``: a warp a row, the row in registers, each
+formulation alone (``hopper_probes.butterfly``) and the four in one launch
+(``hopper_probes.butterfly_all``, what the JAX probe's main() runs).  All
+four are expected to equal the oracle at every density, both ways; a
+mismatch is a kernel bug, not a finding about the card.
 
 Prints, per SUB and variant, OK or FAIL dens=...(cells), as the JAX probe
-does, with the kernel's time on the card.
+does, with the variant's own time on the card, and per SUB the time of the
+four in one butterfly_all call.
 
 Usage: python -m pyrecode_tpu_torch.tools.probe_butterfly [--device cuda]
 """
@@ -55,27 +57,33 @@ def oracle(m: np.ndarray, v: np.ndarray) -> np.ndarray:
 
 def run(device="cuda", reps: int = 20) -> dict:
     """Every variant at SUB 512 and 2048 on the four densities of
-    ``default_rng(1)``, each result also held against the twin.  Returns
-    {"lines", "status": {(sub, variant): "OK" or "FAIL ..."}, "ms": {(sub,
-    variant): ms at density 0.95 or None}, "timed": {sub: the (mask, values)
-    timed}, "max_abs_err": the largest difference from the twin}."""
+    ``default_rng(1)``, alone and through butterfly_all, each result also
+    held against the twin.  Returns {"lines", "status": {(sub, variant):
+    "OK" or "FAIL ..."}, "ms": {(sub, variant): ms of one butterfly call at
+    density 0.95, or None}, "all_ms": {sub: ms of one butterfly_all call
+    there, or None}, "timed": {sub: the (mask, values) timed},
+    "max_abs_err": the largest difference from the twin}."""
     dev = _common.device_of(device)
     rng = np.random.default_rng(1)
-    lines, status, times, timed, worst = [f"butterfly left-pack, S={S}, on {dev}"], {}, {}, {}, 0
+    lines, status, times, all_ms, timed = [f"butterfly left-pack, S={S}, on {dev}"], {}, {}, {}, {}
+    worst = 0
     for sub in SUBS:
         cases = [(d, torch.from_numpy(m).to(dev), torch.from_numpy(v).to(dev), oracle(m, v))
                  for d, m, v in make_cases(rng, sub)]
+        together = [hopper_probes.butterfly_all(m, v) for _, m, v, _ in cases]
         for name in hopper_probes.BUTTERFLY_VARIANTS:
             bad = []
-            for dens, m, v, want in cases:
-                got = hopper_probes.butterfly(m, v, name)
-                err = _common.max_abs_err([got], [hopper_probes.butterfly_plain(m, v, name)])
-                if err:
-                    bad.append(f"dens={dens}(twin)")
-                worst = max(worst, err)
-                cells = int((got.cpu().numpy() != want).sum())
-                if cells:
-                    bad.append(f"dens={dens}({cells})")
+            for (dens, m, v, want), four in zip(cases, together):
+                twin = hopper_probes.butterfly_plain(m, v, name)
+                for how, got in (("", hopper_probes.butterfly(m, v, name)),
+                                 ("all ", four[name])):
+                    err = _common.max_abs_err([got], [twin])
+                    if err:
+                        bad.append(f"dens={dens}({how}twin)")
+                    worst = max(worst, err)
+                    cells = int((got.cpu().numpy() != want).sum())
+                    if cells:
+                        bad.append(f"dens={dens}({how}{cells})")
             _, m, v, _ = cases[-1]
             timed[sub] = m, v
             times[sub, name] = _common.device_ms(lambda: hopper_probes.butterfly(m, v, name),
@@ -83,7 +91,12 @@ def run(device="cuda", reps: int = 20) -> dict:
             status[sub, name] = "OK" if not bad else "FAIL " + ", ".join(bad)
             lines.append(f"SUB={sub} {name}: {status[sub, name]} "
                          f"({_common.fmt_ms(times[sub, name])} at density {DENSITIES[-1]})")
-    return {"lines": lines, "status": status, "ms": times, "timed": timed, "max_abs_err": worst}
+        m, v = timed[sub]
+        all_ms[sub] = _common.device_ms(lambda: hopper_probes.butterfly_all(m, v), dev, reps)
+        lines.append(f"SUB={sub} the four in one launch (butterfly_all): "
+                     f"{_common.fmt_ms(all_ms[sub])} at density {DENSITIES[-1]}")
+    return {"lines": lines, "status": status, "ms": times, "all_ms": all_ms, "timed": timed,
+            "max_abs_err": worst}
 
 
 def main(argv=None) -> int:

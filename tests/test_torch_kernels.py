@@ -865,21 +865,49 @@ def test_decode_l1_phases_match_twin(cuda, shape, phase, case):
             _equal(got, hopper_decode.decode_l1(bitmap, values, *shape))
 
 
-@pytest.mark.parametrize("sub", [32, 512, 2048])
+BUTTERFLY_SUBS = [32, 64, 128, 256, 512, 1024, 2048]
+
+
+def _butterfly_cases(cuda, sub):
+    """(mask, vals on the card, the stable compaction in numpy) for 1, 5, 8
+    and 13 rows at densities 0, 0.1, 0.6 and 1.0."""
+    rng = np.random.default_rng(53)
+    for rows in (1, 5, 8, 13):
+        for dens in (0.0, 0.1, 0.6, 1.0):
+            m = (rng.random((rows, sub)) < dens).astype(np.int32)
+            v = rng.integers(1, 513, (rows, sub)).astype(np.int32) * m
+            want = np.zeros_like(v)
+            for r in range(rows):
+                fg = v[r][m[r] > 0]
+                want[r, :fg.size] = fg
+            yield torch.from_numpy(m).to(cuda), torch.from_numpy(v).to(cuda), want
+
+
+@pytest.mark.parametrize("sub", BUTTERFLY_SUBS)
 @pytest.mark.parametrize("variant", hopper_probes.BUTTERFLY_VARIANTS)
 def test_probe_butterfly_matches_twin(cuda, sub, variant):
-    rng = np.random.default_rng(53)
-    for dens in (0.0, 0.1, 0.6, 1.0):
-        m = (rng.random((5, sub)) < dens).astype(np.int32)
-        v = rng.integers(1, 513, (5, sub)).astype(np.int32) * m
-        mt, vt = torch.from_numpy(m).to(cuda), torch.from_numpy(v).to(cuda)
+    for mt, vt, want in _butterfly_cases(cuda, sub):
+        before = hopper_probes.BUTTERFLY_LAUNCHES.value
         got = hopper_probes.butterfly(mt, vt, variant)
+        assert hopper_probes.BUTTERFLY_LAUNCHES.value == before + 1
         _equal([got], [hopper_probes.butterfly_plain(mt, vt, variant)])
-        want = np.zeros_like(v)
-        for r in range(5):
-            fg = v[r][m[r] > 0]
-            want[r, :fg.size] = fg
         assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("sub", BUTTERFLY_SUBS)
+def test_probe_butterfly_all_matches_twins(cuda, sub):
+    """The four formulations in one launch: each output equals its twin and
+    numpy's stable compaction, and all four are views of one allocation."""
+    for mt, vt, want in _butterfly_cases(cuda, sub):
+        before = hopper_probes.BUTTERFLY_LAUNCHES.value
+        got = hopper_probes.butterfly_all(mt, vt)
+        assert hopper_probes.BUTTERFLY_LAUNCHES.value == before + 1
+        assert list(got) == list(hopper_probes.BUTTERFLY_VARIANTS)
+        assert len({t.untyped_storage().data_ptr() for t in got.values()}) == 1
+        twins = hopper_probes.butterfly_all_plain(mt, vt)
+        for name, out in got.items():
+            _equal([out], [twins[name]])
+            assert np.array_equal(out.cpu().numpy(), want)
 
 
 # (m, k, n): the probe's; n = 136 = 8 mod 16 (the last 16-column strip's

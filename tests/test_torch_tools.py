@@ -8,7 +8,8 @@ and against numpy, exactly; and each probe tool end to end with
   "bitmap" against the Pallas bitmap, "load" against an int64 numpy sum,
   "store" against the unpacked bitmap, the tile counts and offsets against
   numpy;
-* P5, the butterfly, against the JAX probe's own formulations inside
+* P5, the butterfly, each formulation alone and the four through
+  ``butterfly_all``, against the JAX probe's own formulations inside
   ``pl.pallas_call(..., interpret=True)`` and the stable-compaction oracle;
 * P4, the f32 product, against ``lut[:, idx]``, ``jax.lax.dot_general`` at
   HIGHEST, a numpy emulation of TF32 rounding, and the JAX probe's kernel
@@ -119,23 +120,45 @@ def test_decode_phases_match_jax_and_numpy(decoded, phase):
         assert np.array_equal(got[0], twin[0].numpy())
 
 
-@pytest.mark.parametrize("variant", hopper_probes.BUTTERFLY_VARIANTS)
-def test_butterfly_twin_matches_the_pallas_probe(variant):
-    """SUB 512, the JAX probe's four densities from default_rng(1): the twin
-    equals the JAX probe's formulation run by pl.pallas_call in interpret
-    mode, and the stable compaction."""
+def _pallas_butterfly(variant: str, sub: int):
+    """The JAX probe's kernel for ``variant`` at S x sub, as its main()
+    builds it, run by pl.pallas_call in interpret mode."""
     fn = make_variants()[variant]
-    S, SUB = probe_butterfly.S, 512
+    S = probe_butterfly.S
 
     def kernel(m_ref, v_ref, o_ref):
-        o_ref[...] = fn(m_ref[...], v_ref[...], S, SUB) & 0xFFFF
+        o_ref[...] = fn(m_ref[...], v_ref[...], S, sub) & 0xFFFF
 
-    call = pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct((S, SUB), jnp.int32),
+    call = pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct((S, sub), jnp.int32),
                           interpret=True)
-    for dens, m, v in probe_butterfly.make_cases(np.random.default_rng(1), SUB):
+    return lambda m, v: np.asarray(call(jnp.asarray(m), jnp.asarray(v)))
+
+
+@pytest.mark.parametrize("sub", probe_butterfly.SUBS)
+@pytest.mark.parametrize("variant", hopper_probes.BUTTERFLY_VARIANTS)
+def test_butterfly_twin_matches_the_pallas_probe(variant, sub):
+    """The JAX probe's SUBs and four densities from default_rng(1): the twin
+    equals the JAX probe's formulation run by pl.pallas_call in interpret
+    mode, and the stable compaction."""
+    call = _pallas_butterfly(variant, sub)
+    for dens, m, v in probe_butterfly.make_cases(np.random.default_rng(1), sub):
         got = hopper_probes.butterfly(torch.from_numpy(m), torch.from_numpy(v), variant).numpy()
-        assert np.array_equal(got, np.asarray(call(jnp.asarray(m), jnp.asarray(v)))), dens
+        assert np.array_equal(got, call(m, v)), dens
         assert np.array_equal(got, probe_butterfly.oracle(m, v)), dens
+
+
+def test_butterfly_all_matches_the_pallas_probe():
+    """butterfly_all on CPU tensors (its twin) gives each formulation's
+    output as the JAX probe's kernel does, and the stable compaction, at
+    SUB 512 on the probe's four densities."""
+    sub = 512
+    calls = {name: _pallas_butterfly(name, sub) for name in hopper_probes.BUTTERFLY_VARIANTS}
+    for dens, m, v in probe_butterfly.make_cases(np.random.default_rng(1), sub):
+        got = hopper_probes.butterfly_all(torch.from_numpy(m), torch.from_numpy(v))
+        assert list(got) == list(hopper_probes.BUTTERFLY_VARIANTS)
+        for name, out in got.items():
+            assert np.array_equal(out.numpy(), calls[name](m, v)), (dens, name)
+            assert np.array_equal(out.numpy(), probe_butterfly.oracle(m, v)), (dens, name)
 
 
 def _rna(x: np.ndarray) -> np.ndarray:
@@ -335,6 +358,17 @@ def test_probe_wrappers_reject_bad_arguments():
         hopper_probes.butterfly(rows, rows, "packed_or")
     with pytest.raises(ValueError, match="variant"):
         hopper_probes.butterfly(rows[:, :32].contiguous(), rows[:, :32].contiguous(), "packed")
+    with pytest.raises(ValueError, match="power of two"):
+        hopper_probes.butterfly_all(rows, rows)
+    with pytest.raises(ValueError, match="differ"):
+        hopper_probes.butterfly_all(torch.zeros((2, 64), dtype=torch.int32),
+                                    torch.zeros((2, 32), dtype=torch.int32))
+    with pytest.raises(TypeError, match="vals must be torch.int32"):
+        hopper_probes.butterfly_all(torch.zeros((2, 32), dtype=torch.int32),
+                                    torch.zeros((2, 32), dtype=torch.int64))
+    with pytest.raises(ValueError, match="at least one row"):
+        hopper_probes.butterfly_all(torch.zeros((0, 32), dtype=torch.int32),
+                                    torch.zeros((0, 32), dtype=torch.int32))
     with pytest.raises(ValueError, match="mma"):
         hopper_probes.f32dot(torch.zeros((20, 8)), torch.zeros((8, 8)), "tf32")
     with pytest.raises(ValueError, match="input 0"):
