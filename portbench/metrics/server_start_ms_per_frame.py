@@ -1,0 +1,20 @@
+"""Layer: server (``server.py``).  The host seconds of the head's span
+``server.start``, over the frames written; ms a frame.  It runs from
+``ReCoDeServer.run``'s entry to the last node's ack of start: parameters,
+logger and node threads, and each node's writer built and started
+(threshold and its copy to the card, codec, pool, part file).
+The program's span table, ``pyrecode_tpu_torch.span_totals()``, fills only
+while a profile records, so it holds the traced window alone.  Nothing
+(None) where the program has no such span."""
+
+import pyrecode_tpu_torch as port
+
+SPANS = ("server.start",)
+
+
+def read(run):
+    totals = getattr(port, "span_totals", dict)()
+    frames = run.frames_done()
+    if not frames or any(name not in totals for name in SPANS):
+        return None
+    return sum(totals[name][1] for name in SPANS) / frames * 1e3

@@ -17,7 +17,9 @@ the rANS histogram, encode (of symbols, and of deflate tokens for the
 byte-mode coder) and decode, the L1 decode and the positions decode.
 :mod:`pyrecode_tpu_torch.parallel` spreads the encode over a mesh of
 devices and gathers the blocks over ``torch.distributed``;
-:mod:`pyrecode_tpu_torch.profiling` traces a run with ``torch.profiler``;
+:mod:`pyrecode_tpu_torch.profiling` traces a run with ``torch.profiler``
+and holds the program's spans (:func:`span_totals`: the count and host
+seconds of each span closed while a profile recorded);
 :mod:`pyrecode_tpu_torch.tools` holds the developer probes (the encode and
 decode phase splits, the butterfly, f32-dot and lowering probes), each on
 kernels of its own.
@@ -38,6 +40,7 @@ from .ops import (hopper_bitpack, hopper_decode, hopper_deflate, hopper_encode, 
 from .constants import get_dtype_code, get_dtype_string, map_dtype, rc_cfg
 from .header import ReCoDeHeader
 from .params import InitParams, InputParams
+from .profiling import reset_span_totals, span_totals
 from .reader import ReCoDeReader, merge_parts
 from .server import ReCoDeServer
 from .structures import ReCoDeStructures
@@ -61,6 +64,8 @@ __all__ = [
     "__version__",
     "kernel_launch_counts",
     "reset_kernel_launch_counts",
+    "span_totals",
+    "reset_span_totals",
 ]
 
 _COUNTERS = {

@@ -5,8 +5,11 @@ Port of pyrecode_tpu/profiling.py:
 * :func:`trace` — context manager around ``torch.profiler.profile`` with CPU
   and (where the build has them) CUDA activities; writes a Chrome trace
   (``*.pt.trace.json``, TensorBoard's layout) into ``log_dir``;
-* :func:`annotate` — ``torch.profiler.record_function``, so that a region
-  shows up named inside traces;
+* :func:`annotate` — the program's span: while a ``torch.profiler``
+  profile records anywhere in the process, a named region in the trace
+  (``torch.profiler.record_function``) and a count and host seconds in a
+  process-wide table (:func:`span_totals`, :func:`reset_span_totals`); with
+  no profile recording, one flag check;
 * :class:`StageTimer` — named wall-clock stages accumulated into a
   reference-shaped metrics dict (timedelta values), as the JAX package's;
 * :func:`cuda_event_time` — the counterpart of ``delta_scan_time``: the
@@ -20,10 +23,13 @@ built once per checkout by ``ops/_build.py``.
 from __future__ import annotations
 
 import contextlib
+import threading
+import time
 from datetime import datetime, timedelta
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -38,11 +44,80 @@ def trace(log_dir: str):
         yield
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Name the enclosed region inside profiler traces."""
-    with torch.profiler.record_function(name):
-        yield
+# name -> [count, host seconds] of the spans closed while a profile recorded
+_SPAN_TOTALS: Dict[str, list] = {}
+_SPAN_LOCK = threading.Lock()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """One region; see :func:`annotate`."""
+
+    __slots__ = ("_name", "_args", "_traced", "_metrics", "_key", "_record", "_t0")
+
+    def __init__(self, name, args, traced, metrics, key):
+        self._name, self._args, self._traced = name, args, traced
+        self._metrics, self._key = metrics, key
+        self._record = None
+
+    def __enter__(self):
+        if self._traced:
+            args = (None if self._args is None
+                    else ", ".join(f"{k}={v}" for k, v in self._args.items()))
+            self._record = torch.profiler.record_function(self._name, args)
+            self._record.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self._t0
+        if self._record is not None:
+            self._record.__exit__(*exc)
+            with _SPAN_LOCK:
+                entry = _SPAN_TOTALS.setdefault(self._name, [0, 0.0])
+                entry[0] += 1
+                entry[1] += seconds
+        if self._metrics is not None:
+            self._metrics[self._key] = (self._metrics.get(self._key, timedelta(0))
+                                        + timedelta(seconds=seconds))
+        return False
+
+
+def annotate(name: str, args: Optional[dict] = None, metrics: Optional[dict] = None,
+             key: Optional[str] = None):
+    """The program's span: a context manager around one region.
+
+    Tracing is on while a ``torch.profiler`` profile records in the process
+    (from any thread), checked once on entry.  With tracing on, the region
+    is a ``record_function`` named ``name`` (so it lies in the Chrome trace
+    of a thread the profiler records, on the clock of the device's kernels
+    and copies), with ``args`` (the identifiers that tie it to its request,
+    e.g. ``{"session": ..., "node": ...}``) as its argument string; on exit
+    its count and host seconds (``time.perf_counter``) are added to the
+    table that :func:`span_totals` reads, also when the region raised.  With
+    tracing off the span is that one check: no ``record_function``, no
+    string, no lock.
+
+    ``metrics`` and ``key``: a run-metrics dict whose ``timedelta`` entry
+    ``key`` times the same region; the span's host time is added to it
+    whether tracing is on or not, so the region's clock is read once.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF if metrics is None else _Span(name, None, False, metrics, key)
+    return _Span(name, args, True, metrics, key)
+
+
+def span_totals() -> Dict[str, Tuple[int, float]]:
+    """``{name: (count, host seconds)}`` of the spans closed while a
+    profile recorded, since the last :func:`reset_span_totals`; summed over
+    threads, so spans of concurrent threads add up to more than wall time."""
+    with _SPAN_LOCK:
+        return {name: (count, seconds) for name, (count, seconds) in _SPAN_TOTALS.items()}
+
+
+def reset_span_totals() -> None:
+    with _SPAN_LOCK:
+        _SPAN_TOTALS.clear()
 
 
 class StageTimer:

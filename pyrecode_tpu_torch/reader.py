@@ -29,6 +29,7 @@ from .device import resolve_device
 from .header import ReCoDeHeader
 from .ops.bitpack import bitunpack_values_device, packed_group_shape
 from .ops.hopper_decode import decode_l1
+from .profiling import annotate
 from .structures import _SCHEMA, ReCoDeStructures
 
 # schemes whose decompress is stateless / thread-safe (zstd and blosc hold
@@ -336,62 +337,84 @@ class ReCoDeReader:
         adler32; ``verify=True`` takes the byte path instead (device rANS
         decode to bytes, adler-checked, then the decode kernel).
         """
-        self._check_random_access(start)
-        count = min(count, int(self._header["nz"]) - start)
-        level = int(self._header["reduction_level"])
-        mode = int(self._header["rc_operation_mode"])
-        scheme = int(self._header["compression_scheme"])
-        ny, nx = int(self._header["ny"]), int(self._header["nx"])
-        bit_depth = int(self._header["target_bit_depth"])
+        args = {"start": start, "count": count}
+        with annotate("reader.read_frames_dense", args):
+            return self._read_frames_dense(start, count, use_tpu, verify, args)
 
-        raw_blobs = []
-        for z in range(start, start + count):
-            self._fp.seek(self._frame_data_start_position + int(self._seek_table[z, 1]), 0)
-            raw = self._read_raw_blobs(self._frame_metadata[z], read_data=True)
-            raw_blobs.append((raw["binary_map"], raw.get("pixvals")))
+    def _read_frames_dense(self, start: int, count: int, use_tpu: bool, verify: bool,
+                           args: dict) -> np.ndarray:
+        """``read_frames_dense``; its child spans tile it: ``reader.fetch``,
+        ``reader.inflate`` (host inflate, or scheme 12's device rANS decode
+        to bytes), ``reader.stage`` (the host arrays of bitmaps and packed
+        values and their copies to the device), ``reader.decode`` (through
+        the overflow check; the host decode, or scheme 12's device chains
+        from the coded streams) and ``reader.d2h``."""
+        with annotate("reader.fetch", args):
+            self._check_random_access(start)
+            count = min(count, int(self._header["nz"]) - start)
+            level = int(self._header["reduction_level"])
+            mode = int(self._header["rc_operation_mode"])
+            scheme = int(self._header["compression_scheme"])
+            ny, nx = int(self._header["ny"]), int(self._header["nx"])
+            bit_depth = int(self._header["target_bit_depth"])
+
+            raw_blobs = []
+            for z in range(start, start + count):
+                self._fp.seek(self._frame_data_start_position + int(self._seek_table[z, 1]), 0)
+                raw = self._read_raw_blobs(self._frame_metadata[z], read_data=True)
+                raw_blobs.append((raw["binary_map"], raw.get("pixvals")))
 
         dev12 = use_tpu and mode == 1 and scheme == 12
         if dev12 and level == 1 and all(pv is not None for _, pv in raw_blobs):
             bms, pvs = [bm for bm, _ in raw_blobs], [pv for _, pv in raw_blobs]
-            dense = rans.decode_l1_gap_device(bms, pvs, ny, nx, self._device, verify=verify)
-            if dense is None:
-                dense = rans.decode_l1_symbol_device(bms, pvs, ny, nx, self._device,
-                                                     verify=verify)
+            with annotate("reader.decode", args):
+                dense = rans.decode_l1_gap_device(bms, pvs, ny, nx, self._device, verify=verify)
+                if dense is None:
+                    dense = rans.decode_l1_symbol_device(bms, pvs, ny, nx, self._device,
+                                                         verify=verify)
             if dense is not None:
-                return dense.cpu().numpy().astype(self._numpy_dtype, copy=False)
-        if dev12:
-            flat = rans.rans_decompress_device_batch(
-                [b for pair in raw_blobs for b in pair if b is not None], self._device)
-            it = iter(flat)
-            inflated = [(next(it), next(it) if pv is not None else None) for _, pv in raw_blobs]
-        else:
-            inflated = self._inflate(raw_blobs, mode, scheme)
-        bitmaps = np.zeros((count, self._structures.binary_image_sz_bytes), dtype=np.uint8)
-        for i, (bm, _) in enumerate(inflated):
-            bitmaps[i] = np.frombuffer(bm, dtype=np.uint8)
-        pixval_blobs = [pv for _, pv in inflated]
+                with annotate("reader.d2h", args):
+                    return dense.cpu().numpy().astype(self._numpy_dtype, copy=False)
+        with annotate("reader.inflate", args):
+            if dev12:
+                flat = rans.rans_decompress_device_batch(
+                    [b for pair in raw_blobs for b in pair if b is not None], self._device)
+                it = iter(flat)
+                inflated = [(next(it), next(it) if pv is not None else None)
+                            for _, pv in raw_blobs]
+            else:
+                inflated = self._inflate(raw_blobs, mode, scheme)
+        with annotate("reader.stage", args):
+            bitmaps = np.zeros((count, self._structures.binary_image_sz_bytes), dtype=np.uint8)
+            for i, (bm, _) in enumerate(inflated):
+                bitmaps[i] = np.frombuffer(bm, dtype=np.uint8)
+            pixval_blobs = [pv for _, pv in inflated]
+            on_host = not use_tpu or level != 1
+            if not on_host:
+                _, g_bytes = packed_group_shape(bit_depth)
+                max_bytes = max((len(b) for b in pixval_blobs), default=g_bytes)
+                max_bytes = max(g_bytes, -(-max_bytes // g_bytes) * g_bytes)
+                packed = np.zeros((count, max_bytes), dtype=np.uint8)
+                for i, blob in enumerate(pixval_blobs):
+                    packed[i, : len(blob)] = np.frombuffer(blob, dtype=np.uint8)
+                packed_dev = torch.from_numpy(packed).to(self._device)
+                bitmaps_dev = torch.from_numpy(bitmaps).to(self._device)
 
-        if not use_tpu or level != 1:
-            out = np.zeros((count, ny, nx), dtype=self._numpy_dtype)
-            for i in range(count):
-                rows, cols, vals = oracle.decode_frame_sparse(
-                    bitmaps[i].tobytes(), pixval_blobs[i], ny, nx, bit_depth, level,
-                    dtype=self._numpy_dtype)
-                out[i, rows.astype(int), cols.astype(int)] = vals
-            return out
-
-        _, g_bytes = packed_group_shape(bit_depth)
-        max_bytes = max((len(b) for b in pixval_blobs), default=g_bytes)
-        max_bytes = max(g_bytes, -(-max_bytes // g_bytes) * g_bytes)
-        packed = np.zeros((count, max_bytes), dtype=np.uint8)
-        for i, blob in enumerate(pixval_blobs):
-            packed[i, : len(blob)] = np.frombuffer(blob, dtype=np.uint8)
-
-        values = bitunpack_values_device(torch.from_numpy(packed).to(self._device), bit_depth)
-        dense, overflow = decode_l1(torch.from_numpy(bitmaps).to(self._device), values, ny, nx)
-        if bool(overflow.any()):
-            raise ValueError("corrupt frame: more foreground pixels than stored values")
-        return dense.cpu().numpy().astype(self._numpy_dtype, copy=False)
+        with annotate("reader.decode", args):
+            if on_host:
+                out = np.zeros((count, ny, nx), dtype=self._numpy_dtype)
+                for i in range(count):
+                    rows, cols, vals = oracle.decode_frame_sparse(
+                        bitmaps[i].tobytes(), pixval_blobs[i], ny, nx, bit_depth, level,
+                        dtype=self._numpy_dtype)
+                    out[i, rows.astype(int), cols.astype(int)] = vals
+                return out
+            values = bitunpack_values_device(packed_dev, bit_depth)
+            dense, overflow = decode_l1(bitmaps_dev, values, ny, nx)
+            if bool(overflow.any()):
+                raise ValueError("corrupt frame: more foreground pixels than stored values")
+        with annotate("reader.d2h", args):
+            return dense.cpu().numpy().astype(self._numpy_dtype, copy=False)
 
     def _inflate(self, raw_blobs, mode: int, scheme: int):
         """Entropy-decode (bitmap, pixvals) blob pairs on the host."""
@@ -430,6 +453,13 @@ def merge_parts(folder_path: str, base_filename: str, num_parts: int) -> str:
     frame_id, metadata table backfilled before the frame data, ``nz``
     patched to the true merged frame count.  Returns the merged file path.
     """
+    with annotate("merge.parts"):
+        return _merge_parts(folder_path, base_filename, num_parts)
+
+
+def _merge_parts(folder_path: str, base_filename: str, num_parts: int) -> str:
+    """``merge_parts``, with the spans ``merge.scan`` (the frame count) and
+    ``merge.copy`` (the k-way merge, the table backfill, ``nz``)."""
     part_names = [os.path.join(folder_path, f"{base_filename}_part{index:03d}")
                   for index in range(num_parts)]
     target_path = os.path.join(folder_path, base_filename)
@@ -454,38 +484,40 @@ def merge_parts(folder_path: str, base_filename: str, num_parts: int) -> str:
         pending = [reader.get_next_frame_raw() for reader in readers]
 
         # reserve the metadata region: count every part's frames first
-        total_frames = 0
-        for name in part_names:
-            scan = part_reader(name)
-            while scan.get_next_frame_raw(read_data=False) is not None:
-                total_frames += 1
-            scan.close()
+        with annotate("merge.scan"):
+            total_frames = 0
+            for name in part_names:
+                scan = part_reader(name)
+                while scan.get_next_frame_raw(read_data=False) is not None:
+                    total_frames += 1
+                scan.close()
         target.seek(total_frames * sz_frame_metadata, 1)
 
-        # k-way min-merge on frame_id
-        metadata_rows = []
-        metadata_fields = _SCHEMA[(int(header["reduction_level"]),
-                                   int(header["rc_operation_mode"]))]
-        while True:
-            live = [(i, next(iter(p.keys()))) for i, p in enumerate(pending) if p is not None]
-            if not live:
-                break
-            part_index, frame_id = min(live, key=lambda t: t[1])
-            frame = pending[part_index][frame_id]
-            metadata_rows.append(frame["metadata"])
-            for blob in frame["data"].values():
-                target.write(blob)
-            pending[part_index] = readers[part_index].get_next_frame_raw()
+        with annotate("merge.copy"):
+            # k-way min-merge on frame_id
+            metadata_rows = []
+            metadata_fields = _SCHEMA[(int(header["reduction_level"]),
+                                       int(header["rc_operation_mode"]))]
+            while True:
+                live = [(i, next(iter(p.keys()))) for i, p in enumerate(pending) if p is not None]
+                if not live:
+                    break
+                part_index, frame_id = min(live, key=lambda t: t[1])
+                frame = pending[part_index][frame_id]
+                metadata_rows.append(frame["metadata"])
+                for blob in frame["data"].values():
+                    target.write(blob)
+                pending[part_index] = readers[part_index].get_next_frame_raw()
 
-        # backfill the metadata table (frame_id is dropped: recode_reader.py:584-585)
-        target.seek(header_length + source_header_length, 0)
-        for row in metadata_rows:
-            for field in metadata_fields:
-                target.write(int(row[field["name"]]).to_bytes(field["bytes"], "little"))
+            # backfill the metadata table (frame_id is dropped: recode_reader.py:584-585)
+            target.seek(header_length + source_header_length, 0)
+            for row in metadata_rows:
+                for field in metadata_fields:
+                    target.write(int(row[field["name"]]).to_bytes(field["bytes"], "little"))
 
-        # patch nz with the true merged frame count
-        target.seek(nz_position, 0)
-        target.write(len(metadata_rows).to_bytes(nz_bytes, "little"))
+            # patch nz with the true merged frame count
+            target.seek(nz_position, 0)
+            target.write(len(metadata_rows).to_bytes(nz_bytes, "little"))
 
     for reader in readers:
         reader.close()

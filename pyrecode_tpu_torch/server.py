@@ -33,6 +33,7 @@ from typing import Dict, List, Optional
 from .constants import rc_cfg as rc
 from .device import resolve_device
 from .params import InitParams, InputParams
+from .profiling import annotate
 from .writer import ReCoDeWriter
 
 
@@ -189,7 +190,9 @@ class Logger:
 class ReCoDeNode:
     """Worker thread owning one port writer and its part file; runs the
     command state machine start / process_file / close (reference
-    recode_server.py:567-736)."""
+    recode_server.py:567-736).  Its spans, with the session and node ids:
+    ``node.open`` (the writer's construction: threshold, codec, pool) and
+    ``node.close`` (the writer's close), besides the writer's own."""
 
     def __init__(self, node_id: int, init_params: InitParams, input_params: InputParams,
                  logger: Logger, session_id: str, fail_on_command=None, resume: bool = False,
@@ -199,6 +202,7 @@ class ReCoDeNode:
         self._input_params = input_params
         self._logger = logger
         self._session_id = session_id
+        self._span_args = {"session": session_id, "node": node_id}
         self._device = device
         # fault injection for recovery tests: die on the nth occurrence of a
         # command, given as "cmd" (the first) or ("cmd", n)
@@ -271,7 +275,8 @@ class ReCoDeNode:
                     self._process_file()
                     self.status = rc.STATUS_CODE_AVAILABLE
                 elif command == "close":
-                    self._writer.close()
+                    with annotate("node.close", self._span_args):
+                        self._writer.close()
                     self._log("writer closed")
                     self._send_ack(request)
                     self.status = rc.STATUS_CODE_IS_CLOSED
@@ -289,20 +294,22 @@ class ReCoDeNode:
         image_filename = self._init_params.image_filename
         if self._init_params.mode == "stream":
             image_filename = os.path.join(self._init_params.directory_path, "Next_Stream.seq")
-        self._writer = ReCoDeWriter(
-            image_filename,
-            dark_data=self._dark_data,
-            dark_filename=self._init_params.calibration_filename,
-            output_directory=self._init_params.output_directory,
-            input_params=self._input_params,
-            mode=self._init_params.mode,
-            validation_frame_gap=self._init_params.validation_frame_gap,
-            log_filename=self._init_params.log_filename,
-            run_name=self._init_params.run_name,
-            verbosity=self._init_params.verbosity,
-            use_tpu=self._init_params.use_tpu,
-            node_id=self.node_id,
-            device=self._device)
+        with annotate("node.open", self._span_args):
+            self._writer = ReCoDeWriter(
+                image_filename,
+                dark_data=self._dark_data,
+                dark_filename=self._init_params.calibration_filename,
+                output_directory=self._init_params.output_directory,
+                input_params=self._input_params,
+                mode=self._init_params.mode,
+                validation_frame_gap=self._init_params.validation_frame_gap,
+                log_filename=self._init_params.log_filename,
+                run_name=self._init_params.run_name,
+                verbosity=self._init_params.verbosity,
+                use_tpu=self._init_params.use_tpu,
+                node_id=self.node_id,
+                device=self._device,
+                session_id=self._session_id)
         self._log("writer created")
 
     def _process_file(self) -> None:
@@ -461,6 +468,29 @@ class ProcessNodeHandle:
         self._proc.join(None if deadline is None else max(0.0, deadline - time.monotonic()))
 
 
+class _HeadSpans:
+    """The head's spans, one open at a time so that they tile ``run``:
+    entering one closes the one before; leaving closes the last."""
+
+    def __init__(self, args: dict):
+        self._args, self._name, self._span = args, None, None
+
+    def enter(self, name: str) -> None:
+        if name != self._name:
+            self.__exit__(None, None, None)
+            self._name, self._span = name, annotate(name, self._args)
+            self._span.__enter__()
+
+    def __enter__(self) -> "_HeadSpans":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._span is not None:
+            self._span.__exit__(*exc)
+            self._span = None
+        return False
+
+
 class ReCoDeServer:
     """Head node: orchestrates N nodes (threads or processes) and a logger."""
 
@@ -501,60 +531,72 @@ class ReCoDeServer:
         close with ack validation, join.  ``fail_node_ids`` /
         ``fail_node_on_command`` inject one fault per listed node for
         recovery tests.
+
+        Its spans tile it: ``server.start`` (parameters, logger, nodes, up
+        to the last node's ack of start: each node builds and starts its
+        writer), ``server.process`` (process_file, the wait for the nodes,
+        any recovery round; stream mode's queue manager) and
+        ``server.close`` (close: each node's last flush and part-file
+        patch; the joins and the log).
         """
-        if input_params is None:
-            input_params = InputParams()
-            input_params.load(Path(init_params.params_filename))
-        if not input_params.validate():
-            raise ValueError("Invalid input params")
+        with _HeadSpans({"session": self._session_id}) as phases:
+            phases.enter("server.start")
+            if input_params is None:
+                input_params = InputParams()
+                input_params.load(Path(init_params.params_filename))
+            if not input_params.validate():
+                raise ValueError("Invalid input params")
 
-        logger = Logger(self._session_id, init_params.log_filename)
-        logger.start(echo=init_params.verbosity > 0)
-        logger.push("head", f"session {self._session_id} starting "
-                            f"({input_params.num_threads} nodes, mode={self._mode})")
+            logger = Logger(self._session_id, init_params.log_filename)
+            logger.start(echo=init_params.verbosity > 0)
+            logger.push("head", f"session {self._session_id} starting "
+                                f"({input_params.num_threads} nodes, mode={self._mode})")
 
-        self._init_params_live, self._input_params_live = init_params, input_params
-        log_drainer = None
-        if self._isolation == "process":
-            import multiprocessing as mp
+            self._init_params_live, self._input_params_live = init_params, input_params
+            log_drainer = None
+            if self._isolation == "process":
+                import multiprocessing as mp
 
-            self._log_mp_queue = mp.get_context("spawn").Queue()
-            log_drainer = threading.Thread(target=self._drain_worker_logs, args=(logger,),
-                                           name="recode-log-drain", daemon=True)
-            log_drainer.start()
-        nodes = [self._node(i, logger,
-                            fail_on_command=fail_node_on_command if i in fail_node_ids else None)
-                 for i in range(int(input_params.num_threads))]
-        self._nodes = nodes  # exposed for tests/monitoring
-        for node in nodes:
-            node.start_thread(dark_data=dark_data, data=data)
-        clients = [NodeClient(node.token, self._session_id, node.is_alive,
-                              timeout=self._client_timeout) for node in nodes]
-        self._dark_data, self._data = dark_data, data
-
-        try:
-            self._broadcast(clients, nodes, "start", logger)
-            if self._mode == "batch":
-                self._broadcast(clients, nodes, "process_file", logger)
-                self._wait_until_available(nodes)
-                # recover nodes that died mid-processing (one retry round):
-                # replace, restart, and re-encode their whole slice
-                for index, node in enumerate(nodes):
-                    if node.status == rc.STATUS_CODE_ERROR:
-                        self._spawn_replacement_node(index, clients, nodes, logger)
-                        clients[index].send_request("process_file")
-                self._wait_until_available(nodes)
-            else:
-                self._recode_queue_manager(clients, nodes, init_params, logger)
-            self._broadcast(clients, nodes, "close", logger)
-        finally:
+                self._log_mp_queue = mp.get_context("spawn").Queue()
+                log_drainer = threading.Thread(target=self._drain_worker_logs, args=(logger,),
+                                               name="recode-log-drain", daemon=True)
+                log_drainer.start()
+            nodes = [self._node(i, logger, fail_on_command=(
+                         fail_node_on_command if i in fail_node_ids else None))
+                     for i in range(int(input_params.num_threads))]
+            self._nodes = nodes  # exposed for tests/monitoring
             for node in nodes:
-                node.join(timeout=30)
-            if log_drainer is not None:
-                self._log_mp_queue.put(None)
-                log_drainer.join(timeout=10)
-            logger.push("head", "session closed")
-            logger.close()
+                node.start_thread(dark_data=dark_data, data=data)
+            clients = [NodeClient(node.token, self._session_id, node.is_alive,
+                                  timeout=self._client_timeout) for node in nodes]
+            self._dark_data, self._data = dark_data, data
+
+            try:
+                self._broadcast(clients, nodes, "start", logger)
+                phases.enter("server.process")
+                if self._mode == "batch":
+                    self._broadcast(clients, nodes, "process_file", logger)
+                    self._wait_until_available(nodes)
+                    # recover nodes that died mid-processing (one retry round):
+                    # replace, restart, and re-encode their whole slice
+                    for index, node in enumerate(nodes):
+                        if node.status == rc.STATUS_CODE_ERROR:
+                            self._spawn_replacement_node(index, clients, nodes, logger)
+                            clients[index].send_request("process_file")
+                    self._wait_until_available(nodes)
+                else:
+                    self._recode_queue_manager(clients, nodes, init_params, logger)
+                phases.enter("server.close")
+                self._broadcast(clients, nodes, "close", logger)
+            finally:
+                phases.enter("server.close")
+                for node in nodes:
+                    node.join(timeout=30)
+                if log_drainer is not None:
+                    self._log_mp_queue.put(None)
+                    log_drainer.join(timeout=10)
+                logger.push("head", "session closed")
+                logger.close()
 
         return {node.node_id: node.run_metrics for node in nodes}
 

@@ -20,6 +20,12 @@ files are the JAX writer's bytes.  Its device stages:
   (``device_entropy``: scheme-0 deflate or scheme-12 rANS) and returns the
   coded streams, or copies the raw streams back for host entropy coding.
 
+Spans (:func:`.profiling.annotate`, with the session and node ids): per
+batch ``writer.dispatch`` (children ``writer.h2d``, ``writer.count``,
+``writer.encode``; it times ``frame_thresholding_and_counting_time``) and
+``writer.finish`` (children ``writer.entropy``, ``writer.records``; it times
+``frame_time``), and ``writer.flush`` for each write of the part file.
+
 Every frame size goes through the plain encode kernel, including the
 ``ny <= 128`` frames the JAX writer stacks into one superframe: stacking
 spreads a TPU grid step's fixed cost and has no counterpart here.  The
@@ -51,6 +57,7 @@ from .header import ReCoDeHeader
 from .ops.encode import (count_foreground, encode_frames, encode_frames_auto,
                          signed_to_kernel_frames)
 from .params import InitParams, InputParams
+from .profiling import annotate, trace
 from .structures import ReCoDeStructures
 
 _L2_STATISTIC_NAMES = {0: "max", 1: "max", 2: "sum"}
@@ -79,10 +86,12 @@ class ReCoDeWriter:
                  input_params=None, params_filename="", mode="batch", validation_frame_gap=-1,
                  log_filename="recode.log", run_name="run", verbosity=0, use_tpu=True,
                  max_count=-1, chunk_time_in_sec=0, node_id=0, buffer_size_in_frames=4,
-                 use_c=None, fast_deflate=True, device_entropy=None, device="cuda"):
+                 use_c=None, fast_deflate=True, device_entropy=None, device="cuda",
+                 session_id=""):
         """Parameters as the reference writer's (recode_writer.py:26-66) and
         the JAX writer's, plus ``device`` ("cuda" or "cpu"; "cuda" without
-        CUDA raises).
+        CUDA raises) and ``session_id``, the server session this writer
+        serves, which its spans name beside ``node_id``.
 
         ``node_id`` selects this writer's contiguous frame slice and names
         its part file.  ``buffer_size_in_frames`` is the frames per device
@@ -153,6 +162,8 @@ class ReCoDeWriter:
         self._threshold = thr.astype(self._src_dtype)
 
         self._node_id = node_id
+        self._span_args = ({"session": session_id, "node": node_id} if session_id
+                           else {"node": node_id})
         self._structures = ReCoDeStructures(self._header)
         self._reduction_level = int(self._header["reduction_level"])
         self._rc_operation_mode = int(self._header["rc_operation_mode"])
@@ -391,8 +402,6 @@ class ReCoDeWriter:
         that directory.
         """
         if profile_dir:
-            from .profiling import trace
-
             with trace(profile_dir):
                 return self._run_impl(data)
         return self._run_impl(data)
@@ -442,9 +451,9 @@ class ReCoDeWriter:
                                dtype=batch.dtype)
                 batch = np.concatenate([batch, pad], axis=0)
             first_abs_index = self._chunk_offset + frame_offset + batch_start
-            stt = datetime.now()
-            dispatched = self._dispatch_encode(batch)
-            run_metrics["frame_thresholding_and_counting_time"] += datetime.now() - stt
+            with annotate("writer.dispatch", self._span_args, run_metrics,
+                          "frame_thresholding_and_counting_time"):
+                dispatched = self._dispatch_encode(batch)
             if pending is not None:
                 self._finish_batch(*pending, run_metrics)
             pending = (batch, first_abs_index, dispatched, n_in_batch)
@@ -506,27 +515,32 @@ class ReCoDeWriter:
         ``_materialize_streams`` takes."""
         if not self._init_params.use_tpu:
             return ("host", self._encode_batch_oracle(batch))
-        frames = self._to_device(batch)
-        counts = count_foreground(frames, self._threshold_dev)
-        max_count = int(counts.max()) if counts.numel() else 0
+        with annotate("writer.h2d", self._span_args):
+            frames = self._to_device(batch)
+        with annotate("writer.count", self._span_args):
+            counts = count_foreground(frames, self._threshold_dev)
+            max_count = int(counts.max()) if counts.numel() else 0
         bucket = _bucket_for(max_count, int(self._header["ny"]) * int(self._header["nx"]))
-        if self._signed_source and self._reduction_level in (2, 4):
-            return ("torch", encode_frames(frames, self._threshold_dev, self._reduction_level,
-                                           self._bit_depth, max_values=bucket,
-                                           l2_statistic=self._l2_statistic,
-                                           l4_scheme=self._l4_scheme,
-                                           stat_limit=self._stat_limit))
         # scheme-12 device entropy codes the bitmap by its set-bit positions:
         # the L1 encode kernel stores them beside the values (the foreground
         # count also bounds the L2/L4 puddle count)
         with_positions = (self._device_entropy and self._scheme == 12
                           and self._reduction_level == 1)
-        res = encode_frames_auto(frames, self._threshold_dev, self._reduction_level,
-                                 self._bit_depth, max_values=bucket,
-                                 with_positions=with_positions,
-                                 l2_statistic=self._l2_statistic, l4_scheme=self._l4_scheme,
-                                 stat_limit=self._stat_limit)
-        return ("torch", res)
+        with annotate("writer.encode", self._span_args):
+            if self._signed_source and self._reduction_level in (2, 4):
+                return ("torch", encode_frames(frames, self._threshold_dev,
+                                               self._reduction_level, self._bit_depth,
+                                               max_values=bucket,
+                                               l2_statistic=self._l2_statistic,
+                                               l4_scheme=self._l4_scheme,
+                                               stat_limit=self._stat_limit))
+            return ("torch", encode_frames_auto(frames, self._threshold_dev,
+                                                self._reduction_level, self._bit_depth,
+                                                max_values=bucket,
+                                                with_positions=with_positions,
+                                                l2_statistic=self._l2_statistic,
+                                                l4_scheme=self._l4_scheme,
+                                                stat_limit=self._stat_limit))
 
     def _materialize_streams(self, batch: np.ndarray, dispatched):
         """("raw", [(bitmap bytes, pixvals bytes or None), ...]) for host
@@ -608,27 +622,32 @@ class ReCoDeWriter:
 
     def _finish_batch(self, batch: np.ndarray, first_abs_index: int, dispatched,
                       n_in_batch: int, run_metrics: dict) -> None:
-        stt = datetime.now()
-        stream_kind, streams = self._materialize_streams(batch, dispatched)
-        if stream_kind == "compressed":
-            streams, t_bm, t_px = streams
-            run_metrics["frame_binary_image_compression_time"] += t_bm
-            run_metrics["frame_pixel_intensity_compression_time"] += t_px
-            records = self._assemble_precompressed(first_abs_index, streams[:n_in_batch])
-        elif self._rc_operation_mode == 1 and self._compression_pool is not None \
-                and len(streams := streams[:n_in_batch]) > 1:
-            records = self._assemble_records_parallel(first_abs_index, streams, run_metrics)
-        else:
-            records = [
-                self._assemble_record(first_abs_index + i, bitmap, pixvals, run_metrics)
-                for i, (bitmap, pixvals) in enumerate(streams[:n_in_batch])
-            ]
-        for record in records:
-            self._out_buffer.append(record)
-            self._out_buffer_bytes += len(record)
-            if self._out_buffer_bytes >= self._out_buffer_limit:
-                self._flush_out_buffer()
-        run_metrics["frame_time"] += datetime.now() - stt
+        with annotate("writer.finish", self._span_args, run_metrics, "frame_time"):
+            # device entropy, or the raw streams' copy back; either waits
+            # for the batch's encode
+            with annotate("writer.entropy", self._span_args):
+                stream_kind, streams = self._materialize_streams(batch, dispatched)
+            with annotate("writer.records", self._span_args):
+                if stream_kind == "compressed":
+                    streams, t_bm, t_px = streams
+                    run_metrics["frame_binary_image_compression_time"] += t_bm
+                    run_metrics["frame_pixel_intensity_compression_time"] += t_px
+                    records = self._assemble_precompressed(first_abs_index,
+                                                           streams[:n_in_batch])
+                elif self._rc_operation_mode == 1 and self._compression_pool is not None \
+                        and len(streams := streams[:n_in_batch]) > 1:
+                    records = self._assemble_records_parallel(first_abs_index, streams,
+                                                              run_metrics)
+                else:
+                    records = [
+                        self._assemble_record(first_abs_index + i, bitmap, pixvals, run_metrics)
+                        for i, (bitmap, pixvals) in enumerate(streams[:n_in_batch])
+                    ]
+            for record in records:
+                self._out_buffer.append(record)
+                self._out_buffer_bytes += len(record)
+                if self._out_buffer_bytes >= self._out_buffer_limit:
+                    self._flush_out_buffer()
 
     def _assemble_precompressed(self, first_abs_index: int, streams):
         """Build mode-1 records from device-coded (cbm, cpx, plen)."""
@@ -734,10 +753,11 @@ class ReCoDeWriter:
 
     def _flush_out_buffer(self) -> None:
         if self._out_buffer:
-            self._intermediate_file.write(b"".join(self._out_buffer))
-            self._intermediate_file.flush()
-            self._out_buffer.clear()
-            self._out_buffer_bytes = 0
+            with annotate("writer.flush", self._span_args):
+                self._intermediate_file.write(b"".join(self._out_buffer))
+                self._intermediate_file.flush()
+                self._out_buffer.clear()
+                self._out_buffer_bytes = 0
 
     # ------------------------------------------------------------------ close
 
