@@ -9,7 +9,8 @@ files into one seekable container (reference recode_reader.py:15-595).
 
 ``read_frames_dense`` decodes in bulk on the reader's device: L1 scheme 12
 through the device rANS read chains, L1 otherwise by host inflate, then the
-12-bit unpack kernel (other bit depths: plain unpack) and the decode kernel.
+12-bit unpack kernel (other bit depths: plain unpack) and the decode kernel;
+from the card the frames come back into pinned host memory.
 """
 
 from __future__ import annotations
@@ -35,6 +36,12 @@ from .structures import _SCHEMA, ReCoDeStructures
 # schemes whose decompress is stateless / thread-safe (zstd and blosc hold
 # per-codec context objects that are not)
 _POOL_SAFE_SCHEMES = (0, 2, 3, 4, 5, 12)
+
+# returns the caching host allocator's unused pinned blocks to the system:
+# torch.accelerator's call where the installed torch has it (2.13 does),
+# else the private binding of CUDA builds (torch 2.11 has only that)
+_EMPTY_HOST_CACHE = (getattr(torch.accelerator, "empty_host_cache", None)
+                     or getattr(torch._C, "_host_emptyCache", None))
 
 
 class ReCoDeReader:
@@ -336,6 +343,15 @@ class ReCoDeReader:
         chain (bitmaps as 8-bit symbols), which never check the streams'
         adler32; ``verify=True`` takes the byte path instead (device rANS
         decode to bytes, adler-checked, then the decode kernel).
+
+        On the card the frames are copied into page-locked host memory from
+        PyTorch's caching host allocator, several times faster than into a
+        fresh pageable array.  The caller owns the returned array: no array
+        alive at the same time shares its memory, and its block goes back
+        to the allocator only when the array is freed.  The cost: the
+        allocator keeps its blocks pinned after the arrays are freed, as
+        many as were alive at once, each the output's size rounded up to a
+        power of two; ``close()`` releases those no array holds.
         """
         args = {"start": start, "count": count}
         with annotate("reader.read_frames_dense", args):
@@ -348,7 +364,7 @@ class ReCoDeReader:
         to bytes), ``reader.stage`` (the host arrays of bitmaps and packed
         values and their copies to the device), ``reader.decode`` (through
         the overflow check; the host decode, or scheme 12's device chains
-        from the coded streams) and ``reader.d2h``."""
+        from the coded streams) and ``reader.d2h`` (see ``_to_host``)."""
         with annotate("reader.fetch", args):
             self._check_random_access(start)
             count = min(count, int(self._header["nz"]) - start)
@@ -373,8 +389,7 @@ class ReCoDeReader:
                     dense = rans.decode_l1_symbol_device(bms, pvs, ny, nx, self._device,
                                                          verify=verify)
             if dense is not None:
-                with annotate("reader.d2h", args):
-                    return dense.cpu().numpy().astype(self._numpy_dtype, copy=False)
+                return self._to_host(dense, args)
         with annotate("reader.inflate", args):
             if dev12:
                 flat = rans.rans_decompress_device_batch(
@@ -413,7 +428,25 @@ class ReCoDeReader:
             dense, overflow = decode_l1(bitmaps_dev, values, ny, nx)
             if bool(overflow.any()):
                 raise ValueError("corrupt frame: more foreground pixels than stored values")
+        return self._to_host(dense, args)
+
+    def _to_host(self, dense: torch.Tensor, args: dict) -> np.ndarray:
+        """The span ``reader.d2h``: the decoded frames as a host array.
+
+        A tensor on the card is copied, synchronously, into a fresh tensor
+        of pinned host memory (span ``reader.d2h_pinned`` around the copy,
+        not the allocation); if pinning fails, into pageable memory.  A
+        tensor on the CPU is returned without a copy."""
         with annotate("reader.d2h", args):
+            if dense.device.type == "cuda":
+                try:
+                    host = torch.empty(dense.shape, dtype=dense.dtype, pin_memory=True)
+                except RuntimeError:
+                    host = None   # no pinned memory to be had: the pageable copy
+                if host is not None:
+                    with annotate("reader.d2h_pinned", args):
+                        host.copy_(dense)
+                    return host.numpy().astype(self._numpy_dtype, copy=False)
             return dense.cpu().numpy().astype(self._numpy_dtype, copy=False)
 
     def _inflate(self, raw_blobs, mode: int, scheme: int):
@@ -444,6 +477,8 @@ class ReCoDeReader:
         if self._fp is not None:
             self._fp.close()
             self._fp = None
+        if self._device.type == "cuda" and _EMPTY_HOST_CACHE is not None:
+            _EMPTY_HOST_CACHE()   # the pinned blocks of freed outputs
 
 
 def merge_parts(folder_path: str, base_filename: str, num_parts: int) -> str:

@@ -1,5 +1,6 @@
 """The CUDA kernels of pyrecode_tpu_torch against their plain twins on the
-card, exactly, and the device deflate against the native host encoder.
+card, exactly, the device deflate against the native host encoder, and the
+reader's copy of its frames into pinned host memory.
 
 Every test here needs an NVIDIA GPU (marker ``gpu``) and skips without one.
 The file imports no JAX, so it also runs where JAX is not installed:
@@ -8,6 +9,7 @@ The file imports no JAX, so it also runs where JAX is not installed:
 """
 
 import filecmp
+import gc
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 
 import pyrecode_tpu_torch as port
 from pyrecode_tpu_torch import InputParams, native
+from pyrecode_tpu_torch import reader as reader_mod
 from pyrecode_tpu_torch.codecs import rans
 from pyrecode_tpu_torch.codecs.dyndeflate import deflate_batch_device, host_tables
 from pyrecode_tpu_torch.ops import (_launch, hopper_bitpack, hopper_decode, hopper_deflate,
@@ -652,6 +655,99 @@ def test_card_slice_matches_host(cuda, tmp_path):
     thr = dark.astype(np.int64) + 3
     assert np.array_equal(reader.read_frames_dense(0, 6), np.where(data > thr, data - thr, 0))
     reader.close()
+
+
+def _pinned_read_container(out, scheme):
+    """(residuals, merged L1 container) written on the card: 3 frames of
+    ~70000 foreground pixels at 1024^2, where the writer's rANS coders
+    engage and the reader takes the device gap chain at scheme 12."""
+    rng = np.random.default_rng(22)
+    shape = (3, 1024, 1024)
+    dark = rng.integers(0, 30, shape[1:]).astype(np.uint16)
+    data = (dark + rng.integers(0, 4, shape)).astype(np.uint16)
+    fg = rng.random(shape) < 0.067
+    data[fg] = np.minimum(dark[None].repeat(shape[0], 0)[fg] + 4
+                          + rng.exponential(6.0, int(fg.sum())).astype(np.int64), 4095)
+    params = InputParams(dict(
+        reduction_level=1, rc_operation_mode=1, calibration_threshold_epsilon=3,
+        target_bit_depth=12, source_bit_depth=12, num_cols=shape[2], num_rows=shape[1],
+        num_frames=shape[0], frame_offset=0, num_calibration_frames=1,
+        calibration_frame_offset=0, keep_part_files=0, num_threads=1, l2_statistics=0,
+        l4_centroiding=0, compression_scheme=scheme, compression_level=1,
+        source_file_type=0, source_header_length=0, keep_calibration_data=1,
+        calibration_file_type=0, source_data_type=0, target_data_type=0))
+    assert params.validate()
+    w = port.ReCoDeWriter("s", dark_data=dark, output_directory=str(out), input_params=params,
+                          node_id=0, device="cuda", device_entropy=True)
+    w.start()
+    w.run(data)
+    w.close()
+    thr = dark.astype(np.int64) + 3
+    return np.where(data > thr, data - thr, 0), port.merge_parts(str(out), "s.rc1", 1)
+
+
+@pytest.mark.parametrize("scheme", [0, 12])
+def test_read_frames_dense_copies_into_pinned_memory(cuda, tmp_path, monkeypatch, scheme):
+    """Both return sites: the output is pinned and byte-equal to a pageable
+    copy of the same decode; a call made while an output is alive does not
+    alias it, nor does one made after an earlier output was dropped."""
+    want, merged = _pinned_read_container(tmp_path, scheme)
+    decoded = []
+    for module, name in ((reader_mod, "decode_l1"), (rans, "gap_chain_dense")):
+        monkeypatch.setattr(module, name, lambda *a, _f=getattr(module, name):
+                            decoded.append(_f(*a)) or decoded[-1])
+    reader = port.ReCoDeReader(merged, device="cuda")
+    reader.open()
+    port.reset_span_totals()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            first = reader.read_frames_dense(0, 3)
+        totals = port.span_totals()
+        assert totals["reader.d2h_pinned"][0] == totals["reader.d2h"][0] == 1
+        assert ("reader.inflate" in totals) == (scheme == 0)   # which return site
+        assert len(decoded) == 1
+        assert torch.from_numpy(first).is_pinned()
+        assert np.array_equal(first, decoded[0][0].cpu().numpy())
+        assert np.array_equal(first, want)
+        second = reader.read_frames_dense(0, 3)
+        assert torch.from_numpy(second).is_pinned() and not np.shares_memory(first, second)
+        del first
+        gc.collect()
+        third = reader.read_frames_dense(0, 3)
+        assert torch.from_numpy(third).is_pinned() and not np.shares_memory(second, third)
+        assert np.array_equal(second, want) and np.array_equal(third, want)
+    finally:
+        reader.close()
+        port.reset_span_totals()
+
+
+def test_read_frames_dense_falls_back_when_pinning_fails(cuda, tmp_path, monkeypatch):
+    """A pinned allocation that raises sends that call down the pageable
+    copy, with the same bytes and no ``reader.d2h_pinned`` span."""
+    want, merged = _pinned_read_container(tmp_path, 0)
+    empty = torch.empty
+
+    def no_pinning(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            raise RuntimeError("CUDA error: out of memory (pinning refused)")
+        return empty(*args, **kwargs)
+
+    reader = port.ReCoDeReader(merged, device="cuda")
+    reader.open()
+    port.reset_span_totals()
+    try:
+        pinned = reader.read_frames_dense(0, 3)
+        monkeypatch.setattr(torch, "empty", no_pinning)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = reader.read_frames_dense(0, 3)
+        monkeypatch.undo()
+        totals = port.span_totals()
+    finally:
+        reader.close()
+        port.reset_span_totals()
+    assert totals["reader.d2h"][0] == 1 and "reader.d2h_pinned" not in totals
+    assert torch.from_numpy(pinned).is_pinned() and not torch.from_numpy(got).is_pinned()
+    assert np.array_equal(got, pinned) and np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("mode", sorted(hopper_label.MODES))
