@@ -81,6 +81,7 @@ import torch
 
 from ..ops import hopper_decode, hopper_deflate, hopper_gaps, hopper_rans
 from ..ops.bitpack import bitunpack_values_device, packed_group_shape
+from ..profiling import annotate
 from .dyndeflate import LEN_BASE, LEN_EXTRA, NO_TOKEN, tokenize_bytes_np
 
 MAGIC = 0xA5
@@ -658,6 +659,18 @@ def _symbols_to_bytes(syms: np.ndarray, h: dict) -> bytes:
 # adler32 from exact int64 reductions, and one capacity for the bitmap ->
 # positions kernel (#12) where the JAX coder climbs its capacity buckets.
 
+# The write side's spans (``profiling.annotate``), for a profile to read:
+# ``rans.encode`` around each call of a symbol- or gap-mode batch encoder;
+# inside it ``rans.code`` (the device work, through the fetch of its
+# outputs: the gap symbols, the value unpack, the histogram, the adler32
+# sums, the interleaved encode and its bodies, counts and states) and
+# ``rans.host_stage`` (frequency quantisation and the per-stream loop:
+# headers, stored blocks, host-coded streams).  Inside the loop, one span a
+# stream: ``rans.assemble`` for a stream coded on the card (child
+# ``rans.stored`` where the stored block replaces it), ``rans.host_coder``
+# for one the host coder takes (fewer than 65536 symbols, escape gaps, more
+# set bits than bytes, or the whole batch where the positions overflow).
+
 W_LANES = 1024                  # lanes of one group (format log2_nways = 10)
 ROWS_R = 8                      # groups of a call whose streams are all long
 KERNEL_NWAYS = (W_LANES, ROWS_R * W_LANES)
@@ -720,19 +733,22 @@ def _code_streams(syms, ms: np.ndarray, coded: np.ndarray, alphabet: int):
     lanes, bodies (B, max count) uint8, counts (B,), states (B, lanes))."""
     dev = syms.device
     m_coded = np.where(coded, ms, 0).astype(np.int32)
-    m_dev = torch.from_numpy(m_coded).to(dev)
-    hist = hopper_rans.rans_hist(syms, m_dev).cpu().numpy()
-    freqs, cums = freq_tables(hist, alphabet)
+    with annotate("rans.code"):
+        m_dev = torch.from_numpy(m_coded).to(dev)
+        hist = hopper_rans.rans_hist(syms, m_dev).cpu().numpy()
+    with annotate("rans.host_stage"):
+        freqs, cums = freq_tables(hist, alphabet)
     groups = _groups_for(ms)
     out_bound = 2 * int(m_coded.max()) + 16   # <= 2 bytes a symbol
-    body, states, counts = hopper_rans.rans_encode(
-        syms, *(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (freqs, cums)),
-        m_dev, out_bound, groups)
-    counts = counts.cpu().numpy()
-    if (counts > out_bound).any():
-        raise RuntimeError("rANS body exceeded its bound of 2 bytes a symbol")
-    bodies = body[:, :int(counts.max())].cpu().numpy()
-    states = states.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    with annotate("rans.code"):
+        body, states, counts = hopper_rans.rans_encode(
+            syms, *(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (freqs, cums)),
+            m_dev, out_bound, groups)
+        counts = counts.cpu().numpy()
+        if (counts > out_bound).any():
+            raise RuntimeError("rANS body exceeded its bound of 2 bytes a symbol")
+        bodies = body[:, :int(counts.max())].cpu().numpy()
+        states = states.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
     return freqs, groups * W_LANES, bodies, counts, states
 
 
@@ -757,30 +773,51 @@ def rans_symbols_batch_device(packed, plens, sym_bits: int, raw_cb=None) -> list
     host quantizes frequencies and assembles headers.  Streams of fewer than
     65536 symbols take the host coder; a coded stream longer than stored
     blocks becomes stored.  Returns B scheme-12 streams.
+
+    Spans: ``rans.encode`` around the call, and its children (above).
     """
     if not 8 <= sym_bits <= 12:
         raise ValueError("device symbol mode supports 8..12-bit symbols")
-    B = packed.shape[0]
-    plens = np.asarray(plens, np.int64)
-    ms = plens * 8 // sym_bits
-    coded = ms >= DEVICE_MIN_SYMBOLS
-    raw = _raw_reader(packed, plens, raw_cb)
-    if coded.any():
-        values = _unpack_symbols(packed, sym_bits)
+    with annotate("rans.encode"):
+        B = packed.shape[0]
+        plens = np.asarray(plens, np.int64)
+        ms = plens * 8 // sym_bits
+        coded = ms >= DEVICE_MIN_SYMBOLS
+        raw = _raw_reader(packed, plens, raw_cb)
+        if not coded.any():
+            return _finish_batch(B, coded, raw, lambda r: compress_symbols(r, sym_bits), None)
+        with annotate("rans.code"):
+            values = _unpack_symbols(packed, sym_bits)
         freqs, nways, bodies, counts, states = _code_streams(values, ms, coded, 1 << sym_bits)
-        adlers = _adler32_device(packed, plens)
+        with annotate("rans.code"):
+            adlers = _adler32_device(packed, plens)
+
+        def finish(i):
+            sp = np.flatnonzero(freqs[i] > 0)
+            return plens[i], adlers[i], _finish_stream_symbols(
+                int(plens[i]), int(ms[i]), nways, sym_bits, sp, freqs[i][sp], states[i],
+                bodies[i, :counts[i]].tobytes(), adlers[i])
+        return _finish_batch(B, coded, raw, lambda r: compress_symbols(r, sym_bits), finish)
+
+
+def _finish_batch(B: int, coded: np.ndarray, raw, host_coder, finish) -> list:
+    """The per-stream loop of a batch encoder (span ``rans.host_stage``):
+    ``host_coder(raw(i))`` for a stream not ``coded`` on the card, else
+    ``finish(i)``'s (length, adler32, coded stream), stored where that is
+    the smaller."""
     results = []
-    for i in range(B):
-        n = int(plens[i])
-        if not coded[i]:
-            results.append(compress_symbols(raw(i), sym_bits))
-            continue
-        sp = np.flatnonzero(freqs[i] > 0)
-        stream = _finish_stream_symbols(n, int(ms[i]), nways, sym_bits, sp, freqs[i][sp],
-                                        states[i], bodies[i, :counts[i]].tobytes(), adlers[i])
-        if len(stream) > n + _STORED_OVERHEAD:
-            stream = _stored_stream(raw(i), adlers[i])
-        results.append(stream)
+    with annotate("rans.host_stage"):
+        for i in range(B):
+            if not coded[i]:
+                with annotate("rans.host_coder"):
+                    results.append(host_coder(raw(i)))
+                continue
+            with annotate("rans.assemble"):
+                n, adler, stream = finish(i)
+                if len(stream) > n + _STORED_OVERHEAD:
+                    with annotate("rans.stored"):
+                        stream = _stored_stream(raw(i), adler)
+            results.append(stream)
     return results
 
 
@@ -802,44 +839,47 @@ def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
     of 4095 or more clear bits (escape symbols), with fewer than 65536 set
     bits, or with more set bits than bitmap bytes takes the host coder.
     Returns B scheme-12 streams.
+
+    Spans: ``rans.encode`` around the call, and its children (above).
     """
-    B = bitmaps.shape[0]
-    blens = np.asarray(blens, np.int64)
-    raw = _raw_reader(bitmaps, blens, raw_cb)
-    if positions is None:
-        if out_bound is None:
-            out_bound = 2 * bitmaps.shape[1]
-        out_bound = -(-out_bound // (ROWS_R * W_LANES)) * ROWS_R * W_LANES
-        positions, pos_counts, overflow = hopper_gaps.bitmap_positions(bitmaps, out_bound)
-        if bool(overflow.any()):
-            return [compress_gaps(raw(i)) for i in range(B)]
-    pos = positions.to(torch.int32)
-    cnt = pos_counts.to(torch.int32)
-    valid = torch.arange(pos.shape[1], device=pos.device)[None, :] < cnt[:, None]
-    prev = torch.cat([torch.full((B, 1), -1, dtype=torch.int32, device=pos.device),
-                      pos[:, :-1]], dim=1)
-    syms = torch.where(valid, pos - prev - 1, 0)
-    ms = cnt.cpu().numpy().astype(np.int64)
-    escape = ((syms >= GAP_ESCAPE) & valid).any(dim=1).cpu().numpy()
-    coded = ~escape & (ms >= DEVICE_MIN_SYMBOLS) & (ms <= blens)
-    if coded.any():
-        syms = syms.clamp(max=GAP_ESCAPE - 1).contiguous()
+    with annotate("rans.encode"):
+        B = bitmaps.shape[0]
+        blens = np.asarray(blens, np.int64)
+        raw = _raw_reader(bitmaps, blens, raw_cb)
+        if positions is None:
+            if out_bound is None:
+                out_bound = 2 * bitmaps.shape[1]
+            out_bound = -(-out_bound // (ROWS_R * W_LANES)) * ROWS_R * W_LANES
+            with annotate("rans.code"):
+                positions, pos_counts, overflow = hopper_gaps.bitmap_positions(bitmaps,
+                                                                              out_bound)
+                overflow = bool(overflow.any())
+            if overflow:
+                return _finish_batch(B, np.zeros(B, bool), raw, compress_gaps, None)
+        with annotate("rans.code"):
+            pos = positions.to(torch.int32)
+            cnt = pos_counts.to(torch.int32)
+            valid = torch.arange(pos.shape[1], device=pos.device)[None, :] < cnt[:, None]
+            prev = torch.cat([torch.full((B, 1), -1, dtype=torch.int32, device=pos.device),
+                              pos[:, :-1]], dim=1)
+            syms = torch.where(valid, pos - prev - 1, 0)
+            ms = cnt.cpu().numpy().astype(np.int64)
+            escape = ((syms >= GAP_ESCAPE) & valid).any(dim=1).cpu().numpy()
+        coded = ~escape & (ms >= DEVICE_MIN_SYMBOLS) & (ms <= blens)
+        if not coded.any():
+            return _finish_batch(B, coded, raw, compress_gaps, None)
+        with annotate("rans.code"):
+            syms = syms.clamp(max=GAP_ESCAPE - 1).contiguous()
         freqs, nways, bodies, counts, states = _code_streams(syms, ms, coded, 1 << GAP_BITS)
-        adlers = _adler32_device(bitmaps, blens)
-    results = []
-    for i in range(B):
-        n = int(blens[i])
-        if not coded[i]:
-            results.append(compress_gaps(raw(i)))
-            continue
-        sp = np.flatnonzero(freqs[i] > 0)
-        stream = _finish_stream_symbols(n, int(ms[i]), nways, GAP_BITS, sp, freqs[i][sp],
-                                        states[i], bodies[i, :counts[i]].tobytes(), adlers[i],
-                                        gap=True)
-        if len(stream) > n + _STORED_OVERHEAD:
-            stream = _stored_stream(raw(i), adlers[i])
-        results.append(stream)
-    return results
+        with annotate("rans.code"):
+            adlers = _adler32_device(bitmaps, blens)
+
+        def finish(i):
+            sp = np.flatnonzero(freqs[i] > 0)
+            return blens[i], adlers[i], _finish_stream_symbols(
+                int(blens[i]), int(ms[i]), nways, GAP_BITS, sp, freqs[i][sp], states[i],
+                bodies[i, :counts[i]].tobytes(), adlers[i], gap=True)
+        return _finish_batch(B, coded, raw, compress_gaps, finish)
 
 
 def extra_bits_lut() -> np.ndarray:
@@ -1019,7 +1059,9 @@ def decode_l1_gap_device(bm_streams, pk_streams, height: int, width: int, device
     cannot check their adler32, and the byte path does.  The JAX version's
     geometry guard served its TPU kernel's chunk limits; the positions
     kernel here takes any frame.  A decoded position outside the frame
-    raises.
+    raises.  The chain, from its first launch through the overflow check,
+    is the span ``reader.rans_chain`` (the reader's, which calls it):
+    entered only where the chain runs.
     """
     if verify or not bm_streams or len(bm_streams) != len(pk_streams):
         return None
@@ -1027,8 +1069,10 @@ def decode_l1_gap_device(bm_streams, pk_streams, height: int, width: int, device
     pk_in = gap_chain_inputs(pk_streams, "sym", device)
     if bm_in is None or pk_in is None or not np.array_equal(bm_in["ms"], pk_in["ms"]):
         return None
-    dense, overflow = gap_chain_dense(bm_in, pk_in, height, width)
-    if bool(overflow.any()):
+    with annotate("reader.rans_chain"):
+        dense, overflow = gap_chain_dense(bm_in, pk_in, height, width)
+        overflow = bool(overflow.any())
+    if overflow:
         raise ValueError("TPU-rANS stream corrupt (a decoded position lies outside the frame)")
     return dense
 
@@ -1053,7 +1097,9 @@ def decode_l1_symbol_device(bm_streams, pk_streams, height: int, width: int, dev
     if bm_in is None or pk_in is None or (bm_in["ns"] != height * width // 8).any() \
             or height * width % 8:
         return None
-    dense, overflow = symbol_chain_dense(bm_in, pk_in, height, width)
-    if bool(overflow.any()):
+    with annotate("reader.rans_chain"):
+        dense, overflow = symbol_chain_dense(bm_in, pk_in, height, width)
+        overflow = bool(overflow.any())
+    if overflow:
         raise ValueError("TPU-rANS stream corrupt (more foreground pixels than values)")
     return dense

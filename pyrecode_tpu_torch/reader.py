@@ -361,10 +361,13 @@ class ReCoDeReader:
                            args: dict) -> np.ndarray:
         """``read_frames_dense``; its child spans tile it: ``reader.fetch``,
         ``reader.inflate`` (host inflate, or scheme 12's device rANS decode
-        to bytes), ``reader.stage`` (the host arrays of bitmaps and packed
-        values and their copies to the device), ``reader.decode`` (through
-        the overflow check; the host decode, or scheme 12's device chains
-        from the coded streams) and ``reader.d2h`` (see ``_to_host``)."""
+        to bytes, ``reader.rans_bytes``), ``reader.stage`` (the host arrays
+        of bitmaps and packed values and their copies to the device),
+        ``reader.decode`` (through the overflow check; the host decode, or
+        scheme 12's device chains from the coded streams, ``reader.rans_chain``
+        where a chain runs) and ``reader.d2h`` (see ``_to_host``).  A
+        scheme-12 L1 call with ``use_tpu`` runs one of ``reader.rans_chain``
+        and ``reader.rans_bytes``."""
         with annotate("reader.fetch", args):
             self._check_random_access(start)
             count = min(count, int(self._header["nz"]) - start)
@@ -392,8 +395,10 @@ class ReCoDeReader:
                 return self._to_host(dense, args)
         with annotate("reader.inflate", args):
             if dev12:
-                flat = rans.rans_decompress_device_batch(
-                    [b for pair in raw_blobs for b in pair if b is not None], self._device)
+                with annotate("reader.rans_bytes", args):
+                    flat = rans.rans_decompress_device_batch(
+                        [b for pair in raw_blobs for b in pair if b is not None],
+                        self._device)
                 it = iter(flat)
                 inflated = [(next(it), next(it) if pv is not None else None)
                             for _, pv in raw_blobs]

@@ -24,7 +24,9 @@ Spans (:func:`.profiling.annotate`, with the session and node ids): per
 batch ``writer.dispatch`` (children ``writer.h2d``, ``writer.count``,
 ``writer.encode``; it times ``frame_thresholding_and_counting_time``) and
 ``writer.finish`` (children ``writer.entropy``, ``writer.records``; it times
-``frame_time``), and ``writer.flush`` for each write of the part file.
+``frame_time``), and ``writer.flush`` for each write of the part file.  At
+scheme 12 ``writer.entropy`` holds the batch encoders' ``rans.*`` spans
+(``codecs/rans.py``).
 
 Every frame size goes through the plain encode kernel, including the
 ``ny <= 128`` frames the JAX writer stacks into one superframe: stacking
