@@ -6,7 +6,8 @@ lifecycle, part-file naming ``<base>.rc<L>_part<NNN>``, per-node frame
 slicing, validation frames, run metrics and record layout, so that the part
 files are the JAX writer's bytes.  Its device stages:
 
-* ``_dispatch_encode`` moves the batch to the device, counts the foreground
+* ``_dispatch_encode`` moves the batch to the device (on the card through
+  a pinned staging buffer, ``_batch_to_device``), counts the foreground
   (one host sync, as in the JAX writer), picks the value buffer with
   ``_bucket_for`` and launches the fused encode (L1/L3: with the values'
   pixel positions when scheme 12 codes on the device; L2/L4: the label
@@ -21,8 +22,9 @@ files are the JAX writer's bytes.  Its device stages:
   coded streams, or copies the raw streams back for host entropy coding.
 
 Spans (:func:`.profiling.annotate`, with the session and node ids): per
-batch ``writer.dispatch`` (children ``writer.h2d``, ``writer.count``,
-``writer.encode``; it times ``frame_thresholding_and_counting_time``) and
+batch ``writer.dispatch`` (children ``writer.h2d``, with ``writer.h2d_pinned``
+on the staged route, ``writer.count``, ``writer.encode``; it times
+``frame_thresholding_and_counting_time``) and
 ``writer.finish`` (children ``writer.entropy``, ``writer.records``; it times
 ``frame_time``), and ``writer.flush`` for each write of the part file.  At
 scheme 12 ``writer.entropy`` holds the batch encoders' ``rans.*`` spans
@@ -34,6 +36,12 @@ spreads a TPU grid step's fixed cost and has no counterpart here.  The
 buffer holds the batch's largest count, so an overflow means a fault and
 raises; it is never re-encoded on the host.  ``use_tpu=False`` keeps the
 JAX writer's host oracle path, a user's choice.
+
+The pinned staging buffer costs one batch of page-locked host memory a
+writer on the card, held from its first batch to ``close()``: 134 MB at
+four 4096x4096 frames, 403 MB for a server's three nodes.  ``close()``
+hands it back to PyTorch's caching host allocator, which keeps it pinned
+for the next writer's buffer.
 """
 
 from __future__ import annotations
@@ -184,6 +192,11 @@ class ReCoDeWriter:
 
         self._threshold_dev = None
         self._signed_source = self._src_dtype in (np.int8, np.int16)
+        # the host dtype of the frames the device encode takes
+        self._frames_dtype = self._src_dtype if self._signed_source else np.uint16
+        # the pinned staging buffer of a writer on the card: None until the
+        # first batch, False where pinning failed (``_batch_to_device``)
+        self._staging = None
         if self._init_params.use_tpu:
             if self._src_dtype not in (np.uint8, np.uint16, np.int8, np.int16):
                 raise NotImplementedError(
@@ -253,11 +266,46 @@ class ReCoDeWriter:
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         """Frames or the threshold on the device as the encode takes them:
-        uint16 for the kernels, the source dtype for the plain L2/L4 encode."""
-        if not self._signed_source:
-            return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint16)).to(self._device)
-        dev = torch.from_numpy(np.ascontiguousarray(arr, dtype=self._src_dtype)).to(self._device)
-        return dev if self._reduction_level in (2, 4) else signed_to_kernel_frames(dev)
+        uint16 for the kernels, the source dtype for the plain L2/L4 encode;
+        a pageable copy."""
+        dev = torch.from_numpy(np.ascontiguousarray(arr, dtype=self._frames_dtype))
+        return self._kernel_frames(dev.to(self._device))
+
+    def _kernel_frames(self, dev: torch.Tensor) -> torch.Tensor:
+        """Signed L1/L3 frames with their sign bit flipped for the kernels."""
+        if self._signed_source and self._reduction_level not in (2, 4):
+            return signed_to_kernel_frames(dev)
+        return dev
+
+    def _batch_to_device(self, batch: np.ndarray) -> torch.Tensor:
+        """The span ``writer.h2d``: a batch on the device as ``_to_device``
+        puts it there.
+
+        On the card the batch is copied into this writer's staging buffer,
+        a tensor of pinned host memory of the batch's shape from PyTorch's
+        caching host allocator, taken at the first batch and reused for
+        every later one, and from there to the card without waiting (span
+        ``writer.h2d_pinned`` around the two copies, not the allocation).
+        The host copy releases the interpreter lock, so the nodes' copies
+        run side by side.  If pinning fails, every batch of this writer
+        takes the pageable copy."""
+        with annotate("writer.h2d", self._span_args):
+            if self._device.type == "cuda" and self._staging is None:
+                try:
+                    self._staging = torch.empty(
+                        batch.shape, dtype=torch.from_numpy(np.empty(0, self._frames_dtype)).dtype,
+                        pin_memory=True)
+                except RuntimeError:
+                    self._staging = False   # no pinned memory to be had: the pageable copy
+            if not isinstance(self._staging, torch.Tensor):
+                return self._to_device(batch)
+            with annotate("writer.h2d_pinned", self._span_args):
+                np.copyto(self._staging.numpy(), batch)
+                # the buffer is written again at the next batch's dispatch, after
+                # this batch's int(counts.max()) has waited for the stream, and so
+                # for this copy, which goes before the count on the same stream
+                frames = self._staging.to(self._device, non_blocking=True)
+            return self._kernel_frames(frames)
 
     def _load_calibration(self, dark_data) -> np.ndarray:
         if dark_data is not None:
@@ -517,8 +565,7 @@ class ReCoDeWriter:
         ``_materialize_streams`` takes."""
         if not self._init_params.use_tpu:
             return ("host", self._encode_batch_oracle(batch))
-        with annotate("writer.h2d", self._span_args):
-            frames = self._to_device(batch)
+        frames = self._batch_to_device(batch)
         with annotate("writer.count", self._span_args):
             counts = count_foreground(frames, self._threshold_dev)
             max_count = int(counts.max()) if counts.numel() else 0
@@ -774,6 +821,9 @@ class ReCoDeWriter:
             self._validation_file.close()
         if self._compression_pool is not None:
             self._compression_pool.shutdown(wait=False)
+        # back to the caching host allocator, which keeps it pinned for the
+        # next writer: the host cache is not emptied
+        self._staging = None
 
 
 def print_run_metrics(run_metrics: dict) -> None:
