@@ -882,6 +882,64 @@ def rans_gaps_batch_device(bitmaps, blens, raw_cb=None, positions=None,
         return _finish_batch(B, coded, raw, compress_gaps, finish)
 
 
+# ------------------------------------------------------ the writer's rules
+#
+# The mode of each stream of a frame, as the JAX writer chooses it.  It pads
+# its streams to its deflate kernel's 16384-byte step before the coders see
+# them: the L1 dense test compares the value count with the padded width,
+# and the gap coder's positions capacity is two a byte of it.
+_JAX_BITMAP_STEP = 16384
+
+
+def _gaps_padded(streams, lens, out_bound=None) -> list:
+    pad = -streams.shape[1] % _JAX_BITMAP_STEP
+    if pad:
+        streams = torch.nn.functional.pad(streams, (0, pad))
+    return rans_gaps_batch_device(streams, lens, out_bound=out_bound)
+
+
+def _l1_streams(streams, lens, value_counts, positions=None, pos_counts=None) -> list:
+    """Gap mode, or 8-bit symbols where a frame's values reach the padded
+    width and gaps cannot win; gaps from the encode's positions where given,
+    else from the bitmap -> positions kernel at the most values + 4096."""
+    most = int(value_counts.max())
+    if most >= -(-streams.shape[1] // _JAX_BITMAP_STEP) * _JAX_BITMAP_STEP:
+        return rans_symbols_batch_device(streams, lens, 8)
+    if positions is not None:
+        return rans_gaps_batch_device(streams, lens, positions=positions, pos_counts=pos_counts)
+    return _gaps_padded(streams, lens, most + 4096)
+
+
+def encode_bitmaps_device(bitmaps, level: int, bit_depth: int, plens=None, positions=None,
+                          pos_counts=None) -> list:
+    """A device batch's bitmap streams (B, NB) uint8: at L1 by
+    :func:`_l1_streams`, with the value counts of ``plens`` (the packed
+    values' byte lengths) and the encode's positions; at L2-L4 in gap mode."""
+    lens = np.full(bitmaps.shape[0], bitmaps.shape[1], np.int32)
+    if level == 1:
+        return _l1_streams(bitmaps, lens, plens * 8 // bit_depth, positions, pos_counts)
+    return _gaps_padded(bitmaps, lens)
+
+
+def encode_values_device(packed, plens, level: int, bit_depth: int) -> list:
+    """A device batch's packed value streams: L1 values of 8..12 bits as
+    symbols of their width, other L1 widths by :func:`_l1_streams`, L2
+    statistics in gap mode."""
+    if level == 1 and 8 <= bit_depth <= 12:
+        return rans_symbols_batch_device(packed, plens, bit_depth)
+    if level == 1:
+        return _l1_streams(packed, plens, plens * 8 // bit_depth)
+    return _gaps_padded(packed, plens)
+
+
+def host_coders(level: int, bit_depth: int):
+    """(bitmap coder, values coder) of one frame on the host: gaps for the
+    bitmap, L1 values of 9..16 bits as symbols of their width, others as
+    8-bit symbols."""
+    sym_bits = bit_depth if level == 1 and 9 <= bit_depth <= 16 else 8
+    return compress_gaps, lambda values: compress_symbols(values, sym_bits)
+
+
 def extra_bits_lut() -> np.ndarray:
     """(48, 32) float32 token LUT of the deflate assembler
     (:func:`hopper_deflate.assemble`) that packs byte mode's extra bits: per

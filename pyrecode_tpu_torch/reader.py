@@ -26,22 +26,16 @@ from scipy.sparse import coo_matrix
 from . import codecs, native, oracle
 from .codecs import rans
 from .constants import map_dtype
-from .device import resolve_device
+from .device import pinned_empty, resolve_device
 from .header import ReCoDeHeader
 from .ops.bitpack import bitunpack_values_device, packed_group_shape
 from .ops.hopper_decode import decode_l1
 from .profiling import annotate
-from .structures import _SCHEMA, ReCoDeStructures
+from .structures import ReCoDeStructures
 
 # schemes whose decompress is stateless / thread-safe (zstd and blosc hold
 # per-codec context objects that are not)
 _POOL_SAFE_SCHEMES = (0, 2, 3, 4, 5, 12)
-
-# returns the caching host allocator's unused pinned blocks to the system:
-# torch.accelerator's call where the installed torch has it (2.13 does),
-# else the private binding of CUDA builds (torch 2.11 has only that)
-_EMPTY_HOST_CACHE = (getattr(torch.accelerator, "empty_host_cache", None)
-                     or getattr(torch._C, "_host_emptyCache", None))
 
 
 class ReCoDeReader:
@@ -351,7 +345,8 @@ class ReCoDeReader:
         to the allocator only when the array is freed.  The cost: the
         allocator keeps its blocks pinned after the arrays are freed, as
         many as were alive at once, each the output's size rounded up to a
-        power of two; ``close()`` releases those no array holds.
+        power of two, for later outputs and writers' staging buffers of the
+        process (:func:`.device.pinned_empty`).
         """
         args = {"start": start, "count": count}
         with annotate("reader.read_frames_dense", args):
@@ -444,10 +439,7 @@ class ReCoDeReader:
         tensor on the CPU is returned without a copy."""
         with annotate("reader.d2h", args):
             if dense.device.type == "cuda":
-                try:
-                    host = torch.empty(dense.shape, dtype=dense.dtype, pin_memory=True)
-                except RuntimeError:
-                    host = None   # no pinned memory to be had: the pageable copy
+                host = pinned_empty(dense.shape, dense.dtype)
                 if host is not None:
                     with annotate("reader.d2h_pinned", args):
                         host.copy_(dense)
@@ -482,8 +474,6 @@ class ReCoDeReader:
         if self._fp is not None:
             self._fp.close()
             self._fp = None
-        if self._device.type == "cuda" and _EMPTY_HOST_CACHE is not None:
-            _EMPTY_HOST_CACHE()   # the pinned blocks of freed outputs
 
 
 def merge_parts(folder_path: str, base_filename: str, num_parts: int) -> str:
@@ -536,8 +526,8 @@ def _merge_parts(folder_path: str, base_filename: str, num_parts: int) -> str:
         with annotate("merge.copy"):
             # k-way min-merge on frame_id
             metadata_rows = []
-            metadata_fields = _SCHEMA[(int(header["reduction_level"]),
-                                       int(header["rc_operation_mode"]))]
+            metadata_fields = ReCoDeStructures(header).standard_frame_metadata_structure_for(
+                int(header["reduction_level"]), int(header["rc_operation_mode"]))
             while True:
                 live = [(i, next(iter(p.keys()))) for i, p in enumerate(pending) if p is not None]
                 if not live:

@@ -22,13 +22,14 @@ recode_writer.py:482-550; the leading u32 frame_id exists only in
 
 where bitmap = ceil(nx*ny/8) bytes of the bit-packed binary map, cbm/cpx/css
 are entropy-compressed blobs and "len_packed" records the *uncompressed*
-packed-pixval byte count (not part of the frame size).
+packed-pixval byte count (not part of the frame size).  :func:`frame_record`
+builds every one of them from the schema; the writer builds none by hand.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -62,6 +63,27 @@ def _build_schema() -> Dict[Tuple[int, int], List[dict]]:
 
 
 _SCHEMA = _build_schema()
+
+
+def frame_record(reduction_level: int, rc_operation_mode: int, frame_id: int, first: bytes,
+                 second: Optional[bytes] = None, uncompressed_length: int = 0) -> bytes:
+    """One intermediate-file frame record: the u32 ``frame_id``, the
+    (level, mode) pair's metadata fields, then ``first`` (the bitmap, raw in
+    mode 0, coded in mode 1) and ``second`` (the packed values or summary
+    statistics of L1/L2, raw or coded; None at L3/L4).  A field that counts
+    towards the frame size holds its stream's length; the one that does not
+    (mode 1's ``bytes_in_packed_*``) holds ``uncompressed_length``, the
+    packed stream's length before coding."""
+    fields = []
+    for field in _SCHEMA[(reduction_level, rc_operation_mode)]:
+        if not field["is_frame_size"]:
+            value = uncompressed_length
+        elif field["name"] == "bytes_in_compressed_binary_map":
+            value = len(first)
+        else:
+            value = len(second)
+        fields.append(int(value).to_bytes(field["bytes"], "little"))
+    return b"".join([int(frame_id).to_bytes(4, "little"), *fields, first, second or b""])
 
 
 class ReCoDeStructures:

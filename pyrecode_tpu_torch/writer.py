@@ -17,9 +17,15 @@ files are the JAX writer's bytes.  Its device stages:
   them for its Pallas kernel; int8/int16 L2/L4 frames, whose statistics are
   of the signed values, take the plain :func:`.ops.encode.encode_frames` in
   their own dtype, as the JAX writer sends every L2/L4 batch to XLA;
-* ``_materialize_streams`` entropy-codes the streams on the device
-  (``device_entropy``: scheme-0 deflate or scheme-12 rANS) and returns the
-  coded streams, or copies the raw streams back for host entropy coding.
+* ``_finish_batch`` is one step on every route: entropy, then records.
+  ``_materialize_streams`` (span ``writer.entropy``) returns each frame's
+  final payloads: coded on the device (``device_entropy``; scheme 0 by
+  :func:`.codecs.dyndeflate.deflate_batch_device`, scheme 12 by the rANS
+  coders, whose stream modes :mod:`.codecs.rans` chooses), coded on the
+  host (the raw streams copied back; more than one frame on the
+  compression pool, one frame by the writer's codec), or raw in mode 0.
+  Then :func:`.structures.frame_record` builds every frame's record (span
+  ``writer.records``) from the container's schema.
 
 Spans (:func:`.profiling.annotate`, with the session and node ids): per
 batch ``writer.dispatch`` (children ``writer.h2d``, with ``writer.h2d_pinned``
@@ -27,8 +33,8 @@ on the staged route, ``writer.count``, ``writer.encode``; it times
 ``frame_thresholding_and_counting_time``) and
 ``writer.finish`` (children ``writer.entropy``, ``writer.records``; it times
 ``frame_time``), and ``writer.flush`` for each write of the part file.  At
-scheme 12 ``writer.entropy`` holds the batch encoders' ``rans.*`` spans
-(``codecs/rans.py``).
+scheme 12 on the device ``writer.entropy`` holds the batch encoders'
+``rans.*`` spans (``codecs/rans.py``).
 
 Every frame size goes through the plain encode kernel, including the
 ``ny <= 128`` frames the JAX writer stacks into one superframe: stacking
@@ -39,9 +45,10 @@ JAX writer's host oracle path, a user's choice.
 
 The pinned staging buffer costs one batch of page-locked host memory a
 writer on the card, held from its first batch to ``close()``: 134 MB at
-four 4096x4096 frames, 403 MB for a server's three nodes.  ``close()``
-hands it back to PyTorch's caching host allocator, which keeps it pinned
-for the next writer's buffer.
+four 4096x4096 frames, 403 MB for a server's three nodes.  It comes from
+:func:`.device.pinned_empty`, and ``close()`` hands it back to PyTorch's
+caching host allocator, which nothing in the port empties: the block stays
+pinned for the next writer's buffer or a reader's output.
 """
 
 from __future__ import annotations
@@ -61,24 +68,19 @@ from . import codecs, native, oracle
 from .codecs import rans
 from .codecs.dyndeflate import deflate_batch_device
 from .constants import rc_cfg as rc
-from .device import resolve_device
+from .device import pinned_empty, resolve_device
 from .fileutils import read_file
 from .header import ReCoDeHeader
 from .ops.encode import (count_foreground, encode_frames, encode_frames_auto,
                          signed_to_kernel_frames)
 from .params import InitParams, InputParams
 from .profiling import annotate, trace
-from .structures import ReCoDeStructures
+from .structures import frame_record
 
 _L2_STATISTIC_NAMES = {0: "max", 1: "max", 2: "sum"}
 _L4_SCHEME_NAMES = {0: "weighted_average", 1: "weighted_average", 2: "max", 3: "unweighted"}
 
 _MIN_BUCKET = 1 << 10
-# the JAX writer pads its streams to its deflate kernel's 16384-byte step
-# before the scheme-12 coders see them: the L1 dense-bitmap test compares the
-# value count with the padded width, and the gap coder's positions capacity
-# is two a byte of it
-_JAX_BITMAP_STEP = 16384
 
 
 def _bucket_for(count: int, limit: int) -> int:
@@ -174,7 +176,6 @@ class ReCoDeWriter:
         self._node_id = node_id
         self._span_args = ({"session": session_id, "node": node_id} if session_id
                            else {"node": node_id})
-        self._structures = ReCoDeStructures(self._header)
         self._reduction_level = int(self._header["reduction_level"])
         self._rc_operation_mode = int(self._header["rc_operation_mode"])
         self._bit_depth = int(self._input_params.source_bit_depth)
@@ -291,12 +292,10 @@ class ReCoDeWriter:
         takes the pageable copy."""
         with annotate("writer.h2d", self._span_args):
             if self._device.type == "cuda" and self._staging is None:
-                try:
-                    self._staging = torch.empty(
-                        batch.shape, dtype=torch.from_numpy(np.empty(0, self._frames_dtype)).dtype,
-                        pin_memory=True)
-                except RuntimeError:
-                    self._staging = False   # no pinned memory to be had: the pageable copy
+                staging = pinned_empty(
+                    batch.shape, torch.from_numpy(np.empty(0, self._frames_dtype)).dtype)
+                # no pinned memory to be had: the pageable copy
+                self._staging = False if staging is None else staging
             if not isinstance(self._staging, torch.Tensor):
                 return self._to_device(batch)
             with annotate("writer.h2d_pinned", self._span_args):
@@ -591,39 +590,50 @@ class ReCoDeWriter:
                                                 l4_scheme=self._l4_scheme,
                                                 stat_limit=self._stat_limit))
 
-    def _materialize_streams(self, batch: np.ndarray, dispatched):
-        """("raw", [(bitmap bytes, pixvals bytes or None), ...]) for host
-        entropy coding, or ("compressed", ([(cbm, cpx or None, pixvals
-        length), ...], bitmap time, pixvals time)) from the device."""
+    def _materialize_streams(self, dispatched, n_in_batch: int):
+        """The span ``writer.entropy``: the batch's first ``n_in_batch``
+        frames' payloads, ``[(first, second or None, packed length), ...]``
+        as :func:`.structures.frame_record` takes them, and the bitmaps' and
+        the values' compression times.  It waits for the batch's encode.
+
+        Mode 1 codes on the device (``device_entropy``), or copies the raw
+        streams back and codes them on the host (:meth:`_code_on_host`);
+        mode 0 passes the raw streams on."""
         kind, res = dispatched
         if kind == "host":
-            return ("raw", res)
-        if bool(res.overflow.any()):
-            raise RuntimeError(
-                "encode overflow although the value buffer holds the batch's "
-                f"largest foreground count (counts {res.counts.tolist()})")
-        if self._device_entropy:
-            return ("compressed", self._deflate_on_device(res))
-        bitmaps = res.bitmap.cpu().numpy()
-        if res.packed is None:
-            return ("raw", [(bitmaps[i].tobytes(), None) for i in range(batch.shape[0])])
-        plens = res.packed_len.cpu().numpy()
-        packed = res.packed[:, :int(plens.max())].cpu().numpy()
-        return ("raw", [(bitmaps[i].tobytes(), packed[i, :int(plens[i])].tobytes())
-                        for i in range(batch.shape[0])])
+            streams = res[:n_in_batch]
+        else:
+            if bool(res.overflow.any()):
+                raise RuntimeError(
+                    "encode overflow although the value buffer holds the batch's "
+                    f"largest foreground count (counts {res.counts.tolist()})")
+            if self._device_entropy:
+                payloads, t_bm, t_px = self._code_on_device(res)
+                return payloads[:n_in_batch], t_bm, t_px
+            bitmaps = res.bitmap[:n_in_batch].cpu().numpy()
+            if res.packed is None:
+                streams = [(bitmap.tobytes(), None) for bitmap in bitmaps]
+            else:
+                plens = res.packed_len[:n_in_batch].cpu().numpy()
+                packed = res.packed[:n_in_batch, :int(plens.max())].cpu().numpy()
+                streams = [(bitmaps[i].tobytes(), packed[i, :int(plens[i])].tobytes())
+                           for i in range(n_in_batch)]
+        if self._rc_operation_mode == 0:
+            return [(bitmap, pixvals, 0) for bitmap, pixvals in streams], timedelta(0), timedelta(0)
+        return self._code_on_host(streams)
 
-    def _deflate_on_device(self, res):
+    def _code_on_device(self, res):
         """Entropy-code the batch's bitmap and packed-value streams where
-        they lie; only the coded streams come back to the host (a raw stream
+        they lie, scheme 0 by the deflate kernels and scheme 12 by the rANS
+        coders; only the coded streams come back to the host (a raw stream
         only for a host-coded or stored fallback)."""
         B, n_bm = res.bitmap.shape
         plens = None if res.packed is None else res.packed_len.cpu().numpy().astype(np.int64)
+        level, bit_depth = self._reduction_level, self._bit_depth
         stt = datetime.now()
-        if self._scheme == 12 and self._reduction_level == 1:
-            cbm = self._code_l1_rans(res.bitmap, np.full(B, n_bm, np.int32), plens,
-                                     res.positions, res.counts)
-        elif self._scheme == 12:
-            cbm = self._code_gaps(res.bitmap, np.full(B, n_bm, np.int32))
+        if self._scheme == 12:
+            cbm = rans.encode_bitmaps_device(res.bitmap, level, bit_depth, plens, res.positions,
+                                             res.counts)
         else:
             cbm = deflate_batch_device(res.bitmap, np.full(B, n_bm, np.int32),
                                        hint_state=self._entropy_hints["bm"])
@@ -631,138 +641,70 @@ class ReCoDeWriter:
         if res.packed is None:
             return [(c, None, 0) for c in cbm], t_bm, timedelta(0)
         stt = datetime.now()
-        if self._scheme == 12 and self._reduction_level == 1 and 8 <= self._bit_depth <= 12:
-            # the values as bit_depth-wide symbols (symbol mode); 8-bit values
-            # are the packed bytes, 8-bit symbols, as the host path codes them
-            cpx = rans.rans_symbols_batch_device(res.packed, plens, self._bit_depth)
-        elif self._scheme == 12 and self._reduction_level == 1:
-            cpx = self._code_l1_rans(res.packed, plens, plens)
-        elif self._scheme == 12:
-            cpx = self._code_gaps(res.packed, plens)
+        if self._scheme == 12:
+            cpx = rans.encode_values_device(res.packed, plens, level, bit_depth)
         else:
             cpx = deflate_batch_device(res.packed, plens, hint_state=self._entropy_hints["px"])
-        t_px = datetime.now() - stt
-        return [(cbm[i], cpx[i], int(plens[i])) for i in range(B)], t_bm, t_px
+        return list(zip(cbm, cpx, plens.tolist())), t_bm, datetime.now() - stt
 
-    def _code_l1_rans(self, streams, lens, plens, positions=None, pos_counts=None):
-        """Scheme-12 L1 streams in gap mode, or as 8-bit symbols when a
-        frame's values outnumber the stream's bytes, where gaps cannot win
-        (the JAX writer's test, against its padded stream width): the bitmap
-        from the encode's positions, and values outside 8..12 bits, as the
-        JAX writer's XLA path codes them, from the bitmap -> positions
-        kernel at its capacity, the most values + 4096."""
-        counts = plens * 8 // self._bit_depth
-        if int(counts.max()) >= -(-streams.shape[1] // _JAX_BITMAP_STEP) * _JAX_BITMAP_STEP:
-            return rans.rans_symbols_batch_device(streams, lens, 8)
-        if positions is not None:
-            return rans.rans_gaps_batch_device(streams, lens, positions=positions,
-                                               pos_counts=pos_counts)
-        return self._code_gaps(streams, lens, int(counts.max()) + 4096)
+    def _code_on_host(self, streams):
+        """Mode-1 host entropy coding of ``[(bitmap, pixvals or None), ...]``,
+        as the JAX writer's host path codes them.  More than one frame: on
+        the pool, a frame a task, in order (the codecs release the GIL), at
+        scheme 12 by :func:`.codecs.rans.host_coders`, else by a codec of the
+        task's thread.  One frame: by this writer's codec.  The compression
+        times are summed over the frames."""
+        if len(streams) == 1:
+            coders = (self._codec.compress, self._codec.compress)
+            coded = [self._code_frame(coders, streams[0])]
+        else:
+            coded = list(self._compression_pool.map(
+                lambda frame: self._code_frame(self._pool_coders(), frame), streams))
+        payloads, t_bm, t_px = zip(*coded)
+        return list(payloads), sum(t_bm, timedelta(0)), sum(t_px, timedelta(0))
 
     @staticmethod
-    def _code_gaps(streams, lens, out_bound=None):
-        """Scheme-12 streams in gap mode from the bitmap -> positions kernel,
-        padded as the JAX writer pads them: the positions capacity is two a
-        byte of it, or ``out_bound``."""
-        pad = -streams.shape[1] % _JAX_BITMAP_STEP
-        if pad:
-            streams = torch.nn.functional.pad(streams, (0, pad))
-        return rans.rans_gaps_batch_device(streams, lens, out_bound=out_bound)
+    def _code_frame(coders, frame):
+        """((coded bitmap, coded pixvals or None, pixvals length), bitmap
+        time, pixvals time) of one frame."""
+        (code_bitmap, code_values), (bitmap, pixvals) = coders, frame
+        t0 = datetime.now()
+        cbm = code_bitmap(bitmap)
+        t1 = datetime.now()
+        cpx = None if pixvals is None else code_values(pixvals)
+        return (cbm, cpx, 0 if pixvals is None else len(pixvals)), t1 - t0, datetime.now() - t1
+
+    def _pool_coders(self):
+        """(bitmap coder, values coder) of a pool task: scheme 12's host
+        coders, else a codec of the task's thread (zstd compressor contexts
+        are not shareable; the native sparse deflate is stateless)."""
+        if self._scheme == 12:
+            return rans.host_coders(self._reduction_level, self._bit_depth)
+        codec = (self._codec if self._codec.name == "zlib-sparse-native"
+                 else getattr(self._codec_local, "codec", None))
+        if codec is None:
+            codec = self._codec_local.codec = codecs.get_codec(
+                self._scheme, int(self._header["compression_level"]))
+        return codec.compress, codec.compress
 
     def _finish_batch(self, batch: np.ndarray, first_abs_index: int, dispatched,
                       n_in_batch: int, run_metrics: dict) -> None:
+        """Entropy (span ``writer.entropy``), then the frame records (span
+        ``writer.records``), then the output buffer."""
         with annotate("writer.finish", self._span_args, run_metrics, "frame_time"):
-            # device entropy, or the raw streams' copy back; either waits
-            # for the batch's encode
             with annotate("writer.entropy", self._span_args):
-                stream_kind, streams = self._materialize_streams(batch, dispatched)
+                payloads, t_bm, t_px = self._materialize_streams(dispatched, n_in_batch)
+            run_metrics["frame_binary_image_compression_time"] += t_bm
+            run_metrics["frame_pixel_intensity_compression_time"] += t_px
             with annotate("writer.records", self._span_args):
-                if stream_kind == "compressed":
-                    streams, t_bm, t_px = streams
-                    run_metrics["frame_binary_image_compression_time"] += t_bm
-                    run_metrics["frame_pixel_intensity_compression_time"] += t_px
-                    records = self._assemble_precompressed(first_abs_index,
-                                                           streams[:n_in_batch])
-                elif self._rc_operation_mode == 1 and self._compression_pool is not None \
-                        and len(streams := streams[:n_in_batch]) > 1:
-                    records = self._assemble_records_parallel(first_abs_index, streams,
-                                                              run_metrics)
-                else:
-                    records = [
-                        self._assemble_record(first_abs_index + i, bitmap, pixvals, run_metrics)
-                        for i, (bitmap, pixvals) in enumerate(streams[:n_in_batch])
-                    ]
+                records = [frame_record(self._reduction_level, self._rc_operation_mode,
+                                        first_abs_index + i, *payload)
+                           for i, payload in enumerate(payloads)]
             for record in records:
                 self._out_buffer.append(record)
                 self._out_buffer_bytes += len(record)
                 if self._out_buffer_bytes >= self._out_buffer_limit:
                     self._flush_out_buffer()
-
-    def _assemble_precompressed(self, first_abs_index: int, streams):
-        """Build mode-1 records from device-coded (cbm, cpx, plen)."""
-        records = []
-        for i, (cbm, cpx, plen) in enumerate(streams):
-            frame_id = int(first_abs_index + i).to_bytes(4, "little")
-            if self._reduction_level in (1, 2):
-                records.append(frame_id + len(cbm).to_bytes(4, "little")
-                               + len(cpx).to_bytes(4, "little")
-                               + int(plen).to_bytes(4, "little") + cbm + cpx)
-            else:
-                records.append(frame_id + len(cbm).to_bytes(4, "little") + cbm)
-        return records
-
-    def _assemble_records_parallel(self, first_abs_index: int, streams, run_metrics):
-        """Entropy-code a batch's frames on the pool, in order.
-
-        The codecs release the GIL, so frame-level fan-out scales the host
-        entropy stage.  Scheme 12 codes the bitmap by the gap transform and
-        L1 values of 9..16 bits as symbols of their width (8-bit otherwise),
-        as the JAX writer does.
-        """
-        compress = self._codec_for_thread
-        sym12 = self._scheme == 12
-        sym_bits = self._bit_depth if (sym12 and self._reduction_level == 1
-                                       and 9 <= self._bit_depth <= 16) else 8
-
-        def work(args):
-            index, (bitmap, pixvals) = args
-            codec = compress()
-            t0 = datetime.now()
-            cbm = rans.compress_gaps(bitmap) if sym12 else codec.compress(bitmap)
-            t1 = datetime.now()
-            if pixvals is None:
-                cpx = None
-            elif sym12:
-                cpx = rans.compress_symbols(pixvals, sym_bits)
-            else:
-                cpx = codec.compress(pixvals)
-            t2 = datetime.now()
-            return index, pixvals, cbm, cpx, t1 - t0, t2 - t1
-
-        records = []
-        for index, pixvals, cbm, cpx, t_bm, t_px in self._compression_pool.map(
-                work, enumerate(streams)):
-            run_metrics["frame_binary_image_compression_time"] += t_bm
-            run_metrics["frame_pixel_intensity_compression_time"] += t_px
-            frame_id = int(first_abs_index + index).to_bytes(4, "little")
-            if self._reduction_level in (1, 2):
-                records.append(frame_id + len(cbm).to_bytes(4, "little")
-                               + len(cpx).to_bytes(4, "little")
-                               + len(pixvals).to_bytes(4, "little") + cbm + cpx)
-            else:
-                records.append(frame_id + len(cbm).to_bytes(4, "little") + cbm)
-        return records
-
-    def _codec_for_thread(self):
-        """Per-thread codec (zstd compressor contexts are not shareable)."""
-        if self._codec is not None and self._codec.name == "zlib-sparse-native":
-            return self._codec  # stateless, thread-safe
-        cache = getattr(self._codec_local, "codec", None)
-        if cache is None:
-            cache = codecs.get_codec(int(self._header["compression_scheme"]),
-                                     int(self._header["compression_level"]))
-            self._codec_local.codec = cache
-        return cache
 
     def _encode_batch_oracle(self, batch: np.ndarray):
         out = []
@@ -772,33 +714,6 @@ class ReCoDeWriter:
                 l2_statistic=self._l2_statistic, l4_scheme=self._l4_scheme)
             out.append((enc["packed_binary_map"], enc["packed_pixvals"]))
         return out
-
-    # -------------------------------------------------------- record assembly
-
-    def _assemble_record(self, abs_index: int, bitmap: bytes, pixvals: Optional[bytes],
-                         run_metrics: dict) -> bytes:
-        """Build one intermediate-file frame record (recode_writer.py:482-550)."""
-        level, mode = self._reduction_level, self._rc_operation_mode
-        frame_id = int(abs_index).to_bytes(4, "little")
-
-        if mode == 0:
-            if level in (1, 2):
-                return frame_id + len(pixvals).to_bytes(4, "little") + bitmap + pixvals
-            return frame_id + bitmap
-
-        stt = datetime.now()
-        compressed_bitmap = self._codec.compress(bitmap)
-        run_metrics["frame_binary_image_compression_time"] += datetime.now() - stt
-        if level in (1, 2):
-            stt = datetime.now()
-            compressed_pixvals = self._codec.compress(pixvals)
-            run_metrics["frame_pixel_intensity_compression_time"] += datetime.now() - stt
-            return (frame_id
-                    + len(compressed_bitmap).to_bytes(4, "little")
-                    + len(compressed_pixvals).to_bytes(4, "little")
-                    + len(pixvals).to_bytes(4, "little")
-                    + compressed_bitmap + compressed_pixvals)
-        return frame_id + len(compressed_bitmap).to_bytes(4, "little") + compressed_bitmap
 
     def _flush_out_buffer(self) -> None:
         if self._out_buffer:
@@ -822,7 +737,7 @@ class ReCoDeWriter:
         if self._compression_pool is not None:
             self._compression_pool.shutdown(wait=False)
         # back to the caching host allocator, which keeps it pinned for the
-        # next writer: the host cache is not emptied
+        # next writer (device.pinned_empty)
         self._staging = None
 
 

@@ -35,6 +35,11 @@ def _case(name):
         "l2_sum": (_sparse(rng, (3, 128, 128), 0.03, 4096), 1,
                    dict(reduction_level=2, l2_statistics=2)),
         "single_frame_single_node": (_sparse(rng, (1, 64, 64), 0.05, 4096), 1, {}),
+        # batches of 4 + 1: the host pool, then the one-frame batch by the codec
+        "last_batch_one_frame": (_sparse(rng, (5, 64, 64), 0.05, 4096), 1,
+                                 dict(buffer_size_in_frames=4)),
+        "last_batch_one_frame_scheme12": (_sparse(rng, (5, 64, 64), 0.05, 4096), 1,
+                                          dict(buffer_size_in_frames=4, compression_scheme=12)),
     }[name]
 
 
@@ -53,11 +58,12 @@ def _params(pkg, shape, num_threads, **overrides):
     return p
 
 
-def _write_both(tmp_path, image, data, num_threads, **overrides):
-    """Part files and merged container of each package; returns the out dirs
-    and the merged file's name."""
+def _write_both(tmp_path, image, data, num_threads, buffer_size_in_frames=None, **overrides):
+    """Part files and merged container of each package, each writer with
+    ``buffer_size_in_frames`` where given; returns the merged file's path."""
     shape = data.shape if data is not None else overrides.pop("shape")
     dtype = data.dtype if data is not None else np.uint16
+    batch = {} if buffer_size_in_frames is None else {"buffer_size_in_frames": buffer_size_in_frames}
     outs = {}
     for name, pkg, writer_cls, merge, kwargs in (
             ("port", port, port.ReCoDeWriter, port.merge_parts, dict(device="cpu")),
@@ -67,7 +73,7 @@ def _write_both(tmp_path, image, data, num_threads, **overrides):
         params = _params(pkg, shape, num_threads, **overrides)
         for node_id in range(num_threads):
             w = writer_cls(image, dark_data=np.zeros(shape[1:], dtype), output_directory=str(out),
-                           input_params=params, node_id=node_id, **kwargs)
+                           input_params=params, node_id=node_id, **kwargs, **batch)
             w.start()
             w.run(data)
             w.close()
@@ -84,7 +90,8 @@ def _write_both(tmp_path, image, data, num_threads, **overrides):
 @pytest.mark.parametrize("case", ["more_nodes_than_frames", "all_zero_frames",
                                   "fully_saturated_frames", "uint8_source_bit_depth_8",
                                   "bit_depth_16", "non_square_frames", "width_not_multiple_of_8",
-                                  "l2_sum", "single_frame_single_node"])
+                                  "l2_sum", "single_frame_single_node",
+                                  "last_batch_one_frame", "last_batch_one_frame_scheme12"])
 def test_edge_case_bytes_match_jax(tmp_path, case):
     data, num_threads, overrides = _case(case)
     merged = _write_both(tmp_path, "edge_data", data, num_threads, **overrides)

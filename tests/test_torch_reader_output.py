@@ -1,8 +1,8 @@
 """What ``read_frames_dense`` hands its caller, on the CPU: a fresh,
 writable array on every call that shares memory with no other output
 still alive, with the frames of the container; the CPU's route is the
-pageable one (no ``reader.d2h_pinned`` span) and ``close()`` leaves the
-host allocator alone.  The card's pinned route is tested in
+pageable one (no ``reader.d2h_pinned`` span), and no reader's ``close()``
+empties the host allocator's cache.  The card's pinned route is tested in
 ``test_torch_kernels.py``."""
 
 import numpy as np
@@ -10,7 +10,6 @@ import pytest
 import torch
 
 import pyrecode_tpu_torch as port
-from pyrecode_tpu_torch import reader as reader_mod
 from test_torch_slice import EPSILON, NODES, _fixture, _params, _residuals
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -83,9 +82,12 @@ def test_cpu_read_takes_the_pageable_route(container, monkeypatch):
     scheme, _, merged = container
 
     def refuse():
-        raise AssertionError("a CPU reader emptied the pinned host cache")
+        raise AssertionError("a reader emptied the pinned host cache")
 
-    monkeypatch.setattr(reader_mod, "_EMPTY_HOST_CACHE", refuse)
+    # the caching host allocator's empty call, wherever the installed torch has it
+    for owner, name in ((torch.accelerator, "empty_host_cache"), (torch._C, "_host_emptyCache")):
+        if hasattr(owner, name):
+            monkeypatch.setattr(owner, name, refuse)
     reader = port.ReCoDeReader(merged, device="cpu")
     reader.open()
     try:
@@ -94,6 +96,12 @@ def test_cpu_read_takes_the_pageable_route(container, monkeypatch):
             got = reader.read_frames_dense(1, 2)
     finally:
         reader.close()
+    # nor does a reader on the card: its pinned blocks stay cached for the
+    # process's next outputs and writer buffers
+    on_card = port.ReCoDeReader(merged, device="cpu")
+    on_card.open()
+    on_card._device = torch.device("cuda")
+    on_card.close()
     assert np.array_equal(got, plain) and not np.shares_memory(got, plain)
     totals = port.span_totals()
     assert totals["reader.d2h"][0] == 1

@@ -1,8 +1,9 @@
 """The port's spans (``profiling.annotate``): one flag check with no profile
 recording; with one, a ``record_function`` and a count and host seconds in
 the process-wide table (``span_totals``) from any thread, also for a span
-that raises; and the spans of a thread-node server run, a merge and a
-dense read at a small shape, whose outputs equal an untraced run's."""
+that raises; the spans of a thread-node server run, a merge and a dense
+read at a small shape, whose outputs equal an untraced run's; and the host
+entropy route's coding inside ``writer.entropy``."""
 
 import filecmp
 import json
@@ -10,6 +11,7 @@ import os
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 
 import numpy as np
@@ -206,3 +208,27 @@ def test_reader_spans(tmp_path, untraced):
     assert [name for _, _, name in spans] == [f"reader.{name}"
                                               for name in ("read_frames_dense",) + children]
     _tiled(inner, lo, hi)
+
+
+@pytest.mark.parametrize("scheme", [0, 12])
+def test_host_entropy_codes_inside_the_entropy_span(tmp_path, scheme):
+    """Host entropy (``device_entropy=False``): each batch's coding, four
+    frames on the compression pool and the one-frame last batch by the
+    writer's codec, lies inside ``writer.entropy``, whose seconds are at
+    least the run's summed compression times.  The pool has one worker, so
+    the frames' times do not overlap."""
+    data, dark = _fixture(shape=(5, 256, 256))
+    params = _params(shape=data.shape, num_threads=1, compression_scheme=scheme)
+    w = port.ReCoDeWriter("test_data", dark_data=dark, output_directory=str(tmp_path),
+                          input_params=params, device="cpu", device_entropy=False)
+    w._compression_pool.shutdown()
+    w._compression_pool = ThreadPoolExecutor(max_workers=1)
+    w.start()
+    with torch.profiler.profile(activities=CPU):
+        metrics = w.run(data)
+    w.close()
+    coded = (metrics["frame_binary_image_compression_time"]
+             + metrics["frame_pixel_intensity_compression_time"]).total_seconds()
+    totals = port.span_totals()
+    assert totals["writer.entropy"][0] == 2 and coded > 0
+    assert totals["writer.entropy"][1] >= coded
