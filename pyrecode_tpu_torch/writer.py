@@ -27,7 +27,9 @@ files are the JAX writer's bytes.  Its device stages:
   Then :func:`.structures.frame_record` builds every frame's record (span
   ``writer.records``) from the container's schema.
 
-Spans (:func:`.profiling.annotate`, with the session and node ids): per
+Spans (:func:`.profiling.annotate`, with the session and node ids): in the
+constructor ``writer.threshold`` (child ``writer.threshold_device`` where
+the threshold is built on the device, ``_device_threshold``); per
 batch ``writer.dispatch`` (children ``writer.h2d``, with ``writer.h2d_pinned``
 on the staged route, ``writer.count``, ``writer.encode``; it times
 ``frame_thresholding_and_counting_time``) and
@@ -81,6 +83,10 @@ _L2_STATISTIC_NAMES = {0: "max", 1: "max", 2: "sum"}
 _L4_SCHEME_NAMES = {0: "weighted_average", 1: "weighted_average", 2: "max", 3: "unweighted"}
 
 _MIN_BUCKET = 1 << 10
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 def _bucket_for(count: int, limit: int) -> int:
@@ -155,8 +161,6 @@ class ReCoDeWriter:
             raise ValueError("Invalid ReCoDe header created")
         self._header = self._rc_header.as_dict()
 
-        # threshold = dark + epsilon, saturated at the dtype's max rather
-        # than wrapped (the reference wraps, recode_writer.py:137)
         self._src_dtype = self._input_params.source_numpy_dtype
         if self._src_dtype == np.uint64:   # the JAX writer's saturation overflows here too
             raise OverflowError(
@@ -168,10 +172,7 @@ class ReCoDeWriter:
         if calibration.dtype != self._src_dtype:
             calibration = calibration.astype(self._src_dtype)
         self._calibration_frame = calibration
-        thr = calibration.astype(np.int64) + self._input_params.calibration_threshold_epsilon
-        if np.issubdtype(self._src_dtype, np.integer):
-            thr = np.minimum(thr, np.iinfo(self._src_dtype).max)
-        self._threshold = thr.astype(self._src_dtype)
+        self._host_threshold = None   # the ``_threshold`` property's, at its first use
 
         self._node_id = node_id
         self._span_args = ({"session": session_id, "node": node_id} if session_id
@@ -207,7 +208,11 @@ class ReCoDeWriter:
             # L2 statistics saturate at the source dtype's max, then at the
             # bit depth (oracle.reduce_frame)
             self._stat_limit = min(int(np.iinfo(self._src_dtype).max), (1 << self._bit_depth) - 1)
-            self._threshold_dev = self._to_device(self._threshold)
+        # a host writer's threshold is computed at its first batch (``_threshold``)
+        with annotate("writer.threshold", self._span_args):
+            if self._init_params.use_tpu:
+                with annotate("writer.threshold_device", self._span_args):
+                    self._threshold_dev = self._device_threshold(calibration)
         self._device_entropy = self._resolve_device_entropy(device_entropy)
         # observed token densities per stream kind: lets deflate_batch_device
         # run the fused tokenize+compact kernel from the second batch on
@@ -265,10 +270,45 @@ class ReCoDeWriter:
                 "to entropy-code on the host")
         return bool(device_entropy)
 
+    @property
+    def _threshold(self) -> np.ndarray:
+        """The threshold on the host: dark + epsilon, saturated at the
+        dtype's max rather than wrapped (the reference wraps,
+        recode_writer.py:137), in the source dtype.  Only the validation
+        frames' count and the host oracle's encode read it, so it is
+        computed at its first use: a device writer that writes no
+        validation frames makes none of its int64 passes."""
+        if self._host_threshold is None:
+            thr = (self._calibration_frame.astype(np.int64)
+                   + self._input_params.calibration_threshold_epsilon)
+            if np.issubdtype(self._src_dtype, np.integer):
+                thr = np.minimum(thr, np.iinfo(self._src_dtype).max)
+            self._host_threshold = thr.astype(self._src_dtype)
+        return self._host_threshold
+
+    def _device_threshold(self, calibration: np.ndarray) -> torch.Tensor:
+        """The span ``writer.threshold_device``: the threshold as the encode
+        takes it, ``_to_device(self._threshold)`` byte for byte, built on
+        the device from one pageable copy of the calibration in the frames'
+        dtype: widened to int32, plus epsilon, saturated at the source
+        dtype's max, cast to the source dtype (which wraps a sum below its
+        min, as the host formula's cast does) and to the frames' dtype."""
+        eps = self._input_params.calibration_threshold_epsilon
+        # int32 holds every sum: past +-2^16 an 8- or 16-bit threshold
+        # saturates above, and below keeps only its residue mod 2^16
+        if eps > 1 << 16:
+            eps = 1 << 16
+        elif eps < -(1 << 16):
+            eps = eps % (1 << 16) - (1 << 16)
+        dark = torch.from_numpy(np.ascontiguousarray(calibration, dtype=self._frames_dtype))
+        dark = dark.to(self._device)
+        thr = dark.to(torch.int32).add_(eps).clamp_(max=int(np.iinfo(self._src_dtype).max))
+        return self._kernel_frames(thr.to(_torch_dtype(self._src_dtype)).to(dark.dtype))
+
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """Frames or the threshold on the device as the encode takes them:
-        uint16 for the kernels, the source dtype for the plain L2/L4 encode;
-        a pageable copy."""
+        """Frames on the device as the encode takes them: uint16 for the
+        kernels, the source dtype for the plain L2/L4 encode; a pageable
+        copy."""
         dev = torch.from_numpy(np.ascontiguousarray(arr, dtype=self._frames_dtype))
         return self._kernel_frames(dev.to(self._device))
 
@@ -292,8 +332,7 @@ class ReCoDeWriter:
         takes the pageable copy."""
         with annotate("writer.h2d", self._span_args):
             if self._device.type == "cuda" and self._staging is None:
-                staging = pinned_empty(
-                    batch.shape, torch.from_numpy(np.empty(0, self._frames_dtype)).dtype)
+                staging = pinned_empty(batch.shape, _torch_dtype(self._frames_dtype))
                 # no pinned memory to be had: the pageable copy
                 self._staging = False if staging is None else staging
             if not isinstance(self._staging, torch.Tensor):
